@@ -1,0 +1,274 @@
+"""Batched window scoring engine.
+
+Counterpart of ``inference/engine.py`` in the JAX package: every window of
+a request goes through one batched forward, padded to a power-of-two
+bucket by repeating the last row. Pixels travel as uint8 (``x*255+0.5``
+rounding on the host, ``/255`` on the device), and the long-video path
+uploads a track's crops once and gathers its overlapping windows on the
+device. The forward runs under ``torch.inference_mode()``; on CUDA it runs
+in bf16 by default (``use_bfloat16=None``), on the CPU in fp32.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from lipsync_tpu_torch.inference.calibration import Calibrator
+from lipsync_tpu_torch.models.bridge import (
+    unwrap_state_dict,
+    variables_to_state_dict,
+)
+from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel, ModelConfig
+from lipsync_tpu_torch.utils.device import DeviceLike, get_device
+
+_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def _bucket_batch(n: int) -> int:
+    for b in _BATCH_BUCKETS:
+        if n <= b:
+            return b
+    top = _BATCH_BUCKETS[-1]
+    return ((n + top - 1) // top) * top
+
+
+def _to_uint8(x: np.ndarray) -> np.ndarray:
+    return np.clip(x.astype(np.float32) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
+    """Pad axis 0 to ``n`` rows by repeating the last row."""
+    if x.shape[0] == n:
+        return x
+    return np.concatenate([x, np.repeat(x[-1:], n - x.shape[0], axis=0)])
+
+
+def _as_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A port/reference state dict (tensors or arrays), or a JAX-layout
+    ``{"params", "batch_stats"}`` tree through the bridge."""
+    if "params" in variables:
+        return variables_to_state_dict(variables)
+    return {
+        k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        for k, v in unwrap_state_dict(variables).items()
+    }
+
+
+class ScoringEngine:
+    """Owns the model and its weights on one device."""
+
+    def __init__(
+        self,
+        variables: Mapping[str, Any],
+        config: ModelConfig = ModelConfig(),
+        calibrator: Optional[Calibrator] = None,
+        use_bfloat16: Optional[bool] = None,
+        mesh: Optional[object] = None,
+        max_batch: int = 256,
+        shared_visual_encoding: bool = False,
+        quantized_int8: bool = False,
+        fold_hf_stem: bool = False,
+        device: DeviceLike = None,
+    ):
+        waiting = {
+            "mesh": mesh is not None,
+            "shared_visual_encoding": shared_visual_encoding,
+            "quantized_int8": quantized_int8,
+            "fold_hf_stem": fold_hf_stem,
+        }
+        for name, asked in waiting.items():
+            if asked:
+                raise NotImplementedError(f"{name} is not ported yet")
+        self.device = get_device(device)
+        if use_bfloat16 is None:
+            use_bfloat16 = self.device.type == "cuda"
+        dtype = torch.bfloat16 if use_bfloat16 else torch.float32
+        self.config = config
+        self.model = LipSyncModel(config, dtype=dtype)
+        self.model.load_state_dict(_as_state_dict(variables), strict=True)
+        self.model.to(self.device).eval()
+        self.calibrator = calibrator or Calibrator()
+        self.max_batch = int(max_batch)
+
+    @property
+    def variables(self) -> Dict[str, torch.Tensor]:
+        """The loaded weights (the model's ``state_dict``), on the device."""
+        return self.model.state_dict()
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    # ------------------------------------------------------------------
+    def dispatch_logits(self, visual: np.ndarray,
+                        audio: np.ndarray) -> torch.Tensor:
+        """Pad, bucket, upload and run one group of ``n <= max_batch``
+        windows; returns the bucket's device logits without waiting for
+        them (slice ``[:n]`` after reading back)."""
+        n = visual.shape[0]
+        if audio.ndim == 3:
+            audio = audio[..., None]  # (N, F, T_a, 1)
+        bucket = _bucket_batch(n)
+        visual, audio = _pad_rows(visual, bucket), _pad_rows(audio, bucket)
+        if visual.dtype != np.uint8:
+            visual = _to_uint8(visual)
+        v = self._upload(visual)
+        a = self._upload(audio.astype(np.float32, copy=False))
+        with torch.inference_mode():
+            return self.model(v.float() / 255.0, a)
+
+    @staticmethod
+    def _read_back(groups) -> np.ndarray:
+        """Read back ``(device logits, n)`` groups in order."""
+        return np.concatenate([d[:n].cpu().numpy() for d, n in groups])
+
+    def score_logits(self, visual: np.ndarray,
+                     audio: np.ndarray) -> np.ndarray:
+        """``(N, T, H, W, 3)`` visual + ``(N, F, T_a[, 1])`` mel -> ``(N,)``
+        fp32 logits, in groups of ``max_batch``."""
+        n = visual.shape[0]
+        if n == 0:
+            return np.zeros((0,), np.float32)
+        groups = (
+            (self.dispatch_logits(visual[i : i + self.max_batch],
+                                  audio[i : i + self.max_batch]),
+             min(self.max_batch, n - i))
+            for i in range(0, n, self.max_batch)
+        )
+        return self._read_back(groups)
+
+    def score_probs(self, visual: np.ndarray, audio: np.ndarray) -> np.ndarray:
+        """Calibrated P(REAL) per window."""
+        return self.calibrator(self.score_logits(visual, audio))
+
+    # ------------------------------------------------------------------
+    def score_track_logits(
+        self,
+        crops: np.ndarray,
+        starts: Sequence[int],
+        audio_windows: np.ndarray,
+    ) -> np.ndarray:
+        """Score a track's sliding windows with on-device gathering.
+
+        crops: ``(N, crop, crop, 3)`` float32 in [0, 1] or uint8, the whole
+            track, uploaded once per group.
+        starts: window start indices into the track.
+        audio_windows: ``(W, F, T_a[, 1])`` aligned mel windows.
+        """
+        w = len(starts)
+        if w == 0:
+            return np.zeros((0,), np.float32)
+        groups = (
+            (self.dispatch_track_logits(crops, starts[i : i + self.max_batch],
+                                        audio_windows[i : i + self.max_batch]),
+             len(starts[i : i + self.max_batch]))
+            for i in range(0, w, self.max_batch)
+        )
+        return self._read_back(groups)
+
+    def dispatch_track_logits(
+        self,
+        crops: np.ndarray,
+        starts: Sequence[int],
+        audio_windows: np.ndarray,
+    ) -> torch.Tensor:
+        """Upload one group's crops (uint8, padded to ``video_frames * 2^k``
+        frames with the last frame) and starts, gather the windows on the
+        device and run the forward; returns the device logits without
+        waiting for them."""
+        w = len(starts)
+        chunk = self.config.video_frames
+        if audio_windows.ndim == 3:
+            audio_windows = audio_windows[..., None]
+        if crops.dtype != np.uint8:
+            crops = _to_uint8(crops)
+        n_needed = max(crops.shape[0], max(starts) + chunk)
+        n_pad = chunk
+        while n_pad < n_needed:
+            n_pad *= 2
+        crops = _pad_rows(crops, n_pad)
+        bucket = _bucket_batch(w)
+        starts_arr = np.zeros(bucket, np.int64)
+        starts_arr[:w] = np.asarray(starts, np.int64)
+        audio_windows = _pad_rows(audio_windows, bucket)
+        crops_d = self._upload(crops)
+        starts_d = self._upload(starts_arr)
+        audio_d = self._upload(audio_windows.astype(np.float32, copy=False))
+        with torch.inference_mode():
+            idx = starts_d[:, None] + torch.arange(chunk, device=self.device)
+            windows = crops_d[idx].float() / 255.0
+            return self.model(windows, audio_d)
+
+    def score_track_probs(self, crops, starts, audio_windows) -> np.ndarray:
+        return self.calibrator(
+            self.score_track_logits(crops, starts, audio_windows)
+        )
+
+    def warmup(self) -> None:
+        """Run the canonical shapes once: the single-window forward and the
+        smallest track gather (two windows over ``video_frames + 1``
+        crops)."""
+        cfg = self.config
+        v = np.zeros((1, cfg.video_frames, cfg.crop_size, cfg.crop_size, 3),
+                     np.float32)
+        a = np.zeros((1, cfg.mel_bins, cfg.audio_frames), np.float32)
+        self.score_logits(v, a)
+        crops = np.zeros(
+            (cfg.video_frames + 1, cfg.crop_size, cfg.crop_size, 3), np.uint8
+        )
+        aw = np.zeros((2, cfg.mel_bins, cfg.audio_frames), np.float32)
+        self.score_track_logits(crops, [0, 1], aw)
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def load_engine(
+    model_path: Optional[Path],
+    config: ModelConfig = ModelConfig(),
+    calibrator: Optional[Calibrator] = None,
+    use_bfloat16: Optional[bool] = None,
+    mesh: Optional[object] = None,
+    shared_visual_encoding: bool = False,
+    quantized_int8: bool = False,
+    fold_hf_stem: bool = False,
+    device: DeviceLike = None,
+) -> ScoringEngine:
+    """Build an engine from a reference/port ``.pth`` state dict (raw or in
+    a ``model_state_dict``/``state_dict`` wrapper), or from a ``.npz`` that
+    holds a JAX-layout variables tree flattened with ``/``-joined keys
+    (``params/visual_encoder/stem/conv/kernel``), through the bridge."""
+    if model_path is None:
+        raise FileNotFoundError(
+            "No model path given and no committed checkpoint to fall back to"
+        )
+    model_path = Path(model_path)
+    if not model_path.exists():
+        raise FileNotFoundError(f"Model weights not found at {model_path}")
+    if model_path.is_dir():
+        raise NotImplementedError(
+            "orbax checkpoint directories need JAX; convert them to .npz"
+        )
+    if model_path.suffix == ".npz":
+        with np.load(model_path) as z:
+            variables = _unflatten({k: z[k] for k in z.files})
+    else:
+        variables = torch.load(model_path, map_location="cpu",
+                               weights_only=True)
+    return ScoringEngine(
+        variables, config, calibrator=calibrator, use_bfloat16=use_bfloat16,
+        mesh=mesh, shared_visual_encoding=shared_visual_encoding,
+        quantized_int8=quantized_int8, fold_hf_stem=fold_hf_stem,
+        device=device,
+    )

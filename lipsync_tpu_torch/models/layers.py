@@ -1,0 +1,172 @@
+"""Shared building blocks of the lip-sync model.
+
+Counterpart of ``models/layers.py`` in the JAX package, written as torch
+modules that carry the reference checkpoint's parameter names
+(``nn.Sequential`` indices: ``<block>.0`` conv, ``<block>.1`` BatchNorm;
+packed ``in_proj_weight``/``in_proj_bias`` attention). Convolution blocks
+work on channels-first tensors (torch's NC[D]HW); the encoders permute from
+the package's channels-last layouts at their boundary. BatchNorm eps is
+1e-5, momentum 0.1 (torch's convention, flax's 0.9).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
+_BN = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
+
+
+def compute_in(x: torch.Tensor):
+    """Autocast to ``x``'s dtype when it is bf16, else nothing: a module
+    that opens with this computes in the precision of what it is given."""
+    if x.dtype == torch.bfloat16:
+        return torch.autocast(x.device.type, dtype=torch.bfloat16)
+    return contextlib.nullcontext()
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, torch's default ``nn.GELU()``."""
+    return F.gelu(x)
+
+
+class ConvBNAct(nn.Sequential):
+    """Conv -> BatchNorm -> ReLU (``act=False`` drops the ReLU), N-d by the
+    rank of ``kernel_size``. Only the plain convolution lowering is ported."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Sequence[int],
+        stride: Sequence[int],
+        padding: Sequence[int],
+        bias: bool = False,
+        act: bool = True,
+    ):
+        nd = len(kernel_size)
+        layers = [
+            _CONV[nd](in_channels, out_channels, tuple(kernel_size),
+                      stride=tuple(stride), padding=tuple(padding), bias=bias),
+            _BN[nd](out_channels, eps=1e-5, momentum=0.1),
+        ]
+        if act:
+            layers.append(nn.ReLU())
+        super().__init__(*layers)
+
+
+class ResidualBlockND(nn.Module):
+    """ConvBNReLU -> ConvBN (+ 1x1 ConvBN shortcut when the stride or width
+    changes) -> ReLU; 3-d for video, 2-d for audio."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Sequence[int],
+        stride: Sequence[int],
+    ):
+        super().__init__()
+        nd = len(kernel_size)
+        pad = [(k - 1) // 2 for k in kernel_size]
+        self.conv1 = ConvBNAct(in_channels, out_channels, kernel_size, stride,
+                               pad)
+        self.conv2 = ConvBNAct(out_channels, out_channels, kernel_size,
+                               [1] * nd, pad, act=False)
+        if any(s != 1 for s in stride) or in_channels != out_channels:
+            self.downsample = ConvBNAct(in_channels, out_channels, [1] * nd,
+                                        stride, [0] * nd, act=False)
+        else:
+            self.downsample = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(self.conv2(self.conv1(x)) + identity)
+
+
+def max_pool_same(
+    x: torch.Tensor,
+    window: Sequence[int],
+    strides: Sequence[int],
+    padding: Sequence[Tuple[int, int]],
+) -> torch.Tensor:
+    """Max pool over the spatial dims of a channels-first tensor, padding
+    with -inf (torch's MaxPool). ``padding`` is per spatial dim and must be
+    symmetric."""
+    if any(lo != hi for lo, hi in padding):
+        raise ValueError(f"asymmetric padding {padding} is not supported")
+    pool = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}[len(window)]
+    return pool(x, tuple(window), tuple(strides), tuple(p[0] for p in padding))
+
+
+class MultiHeadAttention(nn.Module):
+    """Batch-first multi-head attention with torch's packed parameters
+    (``in_proj_weight`` ``(3D, D)``, ``in_proj_bias``, ``out_proj``): plain
+    matmul + softmax. Attention-weight dropout applies in training only."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
+        self.dim, self.num_heads, self.dropout = dim, num_heads, dropout
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(
+        self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor
+    ) -> torch.Tensor:
+        d, h = self.dim, self.num_heads
+        w, b = self.in_proj_weight, self.in_proj_bias
+        q = F.linear(query, w[:d], b[:d])
+        k = F.linear(key, w[d : 2 * d], b[d : 2 * d])
+        v = F.linear(value, w[2 * d :], b[2 * d :])
+
+        def split(t):  # (B, T, D) -> (B, H, T, dh)
+            bsz, t_len, _ = t.shape
+            return t.reshape(bsz, t_len, h, d // h).transpose(1, 2)
+
+        q, k, v = split(q), split(k), split(v)
+        logits = (q @ k.transpose(-2, -1)) * (1.0 / (d // h) ** 0.5)
+        weights = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+        weights = F.dropout(weights, self.dropout, self.training)
+        out = (weights @ v).transpose(1, 2)
+        return self.out_proj(out.reshape(out.shape[0], out.shape[1], d))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre-norm encoder layer, exact GELU: the semantics of
+    ``nn.TransformerEncoderLayer(norm_first=True, activation="gelu",
+    batch_first=True)``, with its parameter names."""
+
+    def __init__(self, dim: int, num_heads: int, ff_dim: int,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(dim, num_heads, dropout)
+        self.linear1 = nn.Linear(dim, ff_dim)
+        self.linear2 = nn.Linear(ff_dim, dim)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.norm1(x)
+        x = x + self.dropout(self.self_attn(h, h, h))
+        h = self.dropout(gelu_exact(self.linear1(self.norm2(x))))
+        return x + self.dropout(self.linear2(h))
+
+
+def interp_linear_time(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Linear interpolation along axis 1 of ``(B, T, D)``:
+    ``F.interpolate(mode="linear", align_corners=False)``."""
+    if x.shape[1] == out_len:
+        return x
+    y = F.interpolate(x.transpose(1, 2), size=out_len, mode="linear",
+                      align_corners=False)
+    return y.transpose(1, 2)

@@ -1,0 +1,71 @@
+"""The port stands alone: no JAX, no flax, nothing of the JAX package, and
+no silent fall-back to the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from lipsync_tpu_torch.utils.device import get_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "lipsync_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "lipsync_tpu")
+
+
+def test_importing_every_module_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PKG.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m.removesuffix('.__init__'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax') "
+        "or m == 'lipsync_tpu' or m.startswith('lipsync_tpu.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_sources_import_nothing_of_jax(path):
+    text = path.read_text()
+    assert "lipsync_tpu." not in text
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_get_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_device()
+    with pytest.raises(RuntimeError):
+        get_device("cuda")
+    assert get_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without device="cpu" an entry point asks for CUDA and raises here."""
+    import numpy as np
+
+    from lipsync_tpu_torch.preprocessing.audio import preprocess_audio_pcm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        preprocess_audio_pcm(np.ones(16000, np.float32))
