@@ -8,13 +8,18 @@ each printed as one JSON line:
 
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the ``nvcc`` build of every kernel (``csrc/*.cu``, one compiler per
-   source, all started together), with its seconds and ptxas summary;
-3. K1 (log-mel) against its plain twin at 16384 / 65536 / 262144 samples
-   (< 1e-3 dB), with kernel, twin, library (``ops/mel.py``'s rFFT chain)
-   and bound times;
-4. K2 (HF stem) against its twin at (16, 32, 96, 96, 3) and at an odd,
-   non-square (2, 4, 15, 10, 3) that leaves partial output tiles: fp32 atol
-   2e-5, bf16 within rtol 8e-3 of the fp32 result on the same input;
+   source, all started together), with its seconds, ptxas's registers,
+   shared memory and spills (none allowed) and K2's blocks per SM (>= 2);
+3. K1 (log-mel) against its plain twin at 16384 / 65536 / 262144 /
+   1048576 samples (< 1e-3 dB), with kernel, twin, library (``ops/mel.py``'s
+   rFFT chain) and bound times, and on a quiet-band signal against a
+   float64 DFT of the same chain (K1 no further than the twin + 2e-4 dB,
+   and within the 2.5e-3 dB fp32 floor that the CPU tests pin);
+4. K2 (HF stem) against its twin at every main-path batch, (B, 32, 96, 96,
+   3) for B = 1 / 16 / 128, and at an odd, non-square (2, 4, 15, 10, 3)
+   that leaves partial output tiles: fp32 atol 2e-5, bf16 within
+   |d| <= 8e-3 |fp32| + 1e-5 of the fp32 result on the same input; kernel,
+   twin and bound times in both dtypes;
 5. three requests at the full width of ``ModelConfig()``, each crop ->
    log-mel (K1) -> align -> engine (K2 inside): R1 32 frames of 360x640 +
    2.2 s of PCM through ``score_probs``; R2 150 frames (10 s at 15 fps, 15
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -50,13 +56,20 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 STRIDE = 8
 
-# Published peaks (dense, no sparsity) by card: (bytes/s, fp32 SIMT FLOP/s).
+# Published peaks (dense, no sparsity) by card: (bytes/s, fp32 SIMT FLOP/s,
+# TF32 tensor-core FLOP/s). K2's conv1 runs on the tensor cores, so its
+# bound counts operations at the TF32 rate (H100 SXM: 495 TFLOP/s; the other
+# cards: half their dense bf16 rate). K1 stays on fp32 SIMT FMA, the only
+# type that holds its dB at quiet bands, so its bound keeps the SIMT rate;
+# it counts the operations that the function needs (an rFFT, the mel bands'
+# supports), not those of the kernel's direct DFT.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H200": (4.8e12, 67e12),
-    "H100": (3.35e12, 67e12),  # SXM
+    "H100 PCIe": (2.0e12, 51e12, 378e12),
+    "H100 NVL": (3.9e12, 60e12, 417.5e12),
+    "H200": (4.8e12, 67e12, 494.5e12),
+    "H100": (3.35e12, 67e12, 495e12),  # SXM
 }
+SIMT, TENSOR = "fp32 SIMT", "TF32 tensor cores"
 
 
 def emit(obj) -> None:
@@ -118,7 +131,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    peak_key, (mem_bw, fp32_peak) = peaks(kind)
+    peak_key, (mem_bw, fp32_peak, tf32_peak) = peaks(kind)
     emit({"phase": "card", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks_of": peak_key,
@@ -128,16 +141,34 @@ def main() -> None:
     # ── 2. build ──────────────────────────────────────────────────────
     t0 = time.perf_counter()
     logs = build.build()
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Function properties" in ln]
+             for n, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(logs), "nvcc": build.nvcc_path(),
-          "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n, log in logs.items()}})
+          "built": sorted(logs), "nvcc": build.nvcc_path(), "ptxas": ptxas,
+          "hf_stem_blocks_per_sm": {
+              dt: k2.blocks_per_sm(getattr(torch, dt))
+              for dt in ("float32", "bfloat16")}})
+    spills = [int(v) for lines in ptxas.values() for ln in lines
+              for v in re.findall(r"(\d+) bytes spill", ln)]
+    check(not any(spills), f"ptxas reports spills: {ptxas}")
+    check(k2.blocks_per_sm(torch.bfloat16) >= 2
+          and k2.blocks_per_sm(torch.float32) >= 2,
+          "K2 fits fewer than 2 blocks per SM")
 
-    def bound_ms(n_bytes: float, flops: float):
-        t_bytes, t_ops = n_bytes / mem_bw, flops / fp32_peak
+    def bound_ms(n_bytes: float, flops: float, basis: str = SIMT):
+        t_bytes = n_bytes / mem_bw
+        t_ops = flops / (tf32_peak if basis == TENSOR else fp32_peak)
         return max(t_bytes, t_ops) * 1e3, (
             "bytes" if t_bytes >= t_ops else "operations")
+
+    def in_turns(kernel, plain, iters: int = 20):
+        """Kernel and plain times, each the mean of two runs taken in turns
+        (kernel, plain, plain, kernel)."""
+        k_a, p_a = time_ms(kernel, iters), time_ms(plain, iters)
+        p_b, k_b = time_ms(plain, iters), time_ms(kernel, iters)
+        return (k_a + k_b) / 2, (p_a + p_b) / 2
 
     def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(warmup):
@@ -155,9 +186,22 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
 
     # ── 3. K1 vs its twin ─────────────────────────────────────────────
-    wc, ws, fbt = k1.tables(dev)
+    k1_tables = k1.kernel_tables(dev)
+    k1_bytes = 4 * sum(tb.numel() for tb in k1_tables)
+    bands = k1_tables[4].cpu()
+    support = int((bands[:, 1] - bands[:, 0] + 1).clamp(min=0).sum())
+
+    def k1_flops(t: int) -> float:
+        """Operations per clip of t frames that the function needs: the
+        window, a real 400-point FFT (2.5 N log2 N, half a complex FFT's
+        5 N log2 N), the power c^2 + s^2 and the mel sums over each band's
+        support."""
+        n_fft = k1.N_FFT
+        return t * (n_fft + 2.5 * n_fft * np.log2(n_fft)
+                    + 3 * (n_fft // 2 + 1) + 2 * support)
+
     k1_rows = {}
-    for n in (16384, 65536, 262144):
+    for n in (16384, 65536, 262144, 1 << 20):
         y2 = torch.from_numpy(synthetic.pcm(rng, n)).to(dev)[None]
         t = k1.n_frames_for(n)
         got = k1.finish_db(k1.log_mel_db(y2))
@@ -167,20 +211,50 @@ def main() -> None:
         err = float((got - want).abs().max())
         err_lib = float((got[0] - lib).abs().max())
         check(err < 1e-3, f"K1 vs twin at n={n}: {err} dB")
-        flops = 2 * 2 * t * 400 * 201 + 3 * t * 201 + 2 * t * 201 * 80
-        n_bytes = 4 * (n + 80 * t + wc.numel() + ws.numel() + fbt.numel())
+        flops = k1_flops(t)
+        n_bytes = 4 * (n + 80 * t) + k1_bytes
         bms, bby = bound_ms(n_bytes, flops)
+        kms, pms = in_turns(lambda: k1.log_mel_db(y2),
+                            lambda: k1.log_mel_db_plain(y2))
         row = {"n": n, "frames": t, "max_abs_err_db": err,
                "max_abs_err_vs_rfft_db": err_lib,
-               "kernel_ms": time_ms(lambda: k1.log_mel_db(y2)),
-               "plain_ms": time_ms(lambda: k1.log_mel_db_plain(y2)),
+               "kernel_ms": kms, "plain_ms": pms,
+               "kernel_over_plain": kms / pms,
                # cuFFT + cuBLAS, and the clip-max reference and floor
                "library_ms": time_ms(
                    lambda: mel_ops.log_mel_spectrogram(y2[0])),
-               "bound_ms": bms, "bound_by": bby,
+               "bound_ms": bms, "bound_by": bby, "bound_basis": SIMT,
                "gflop": flops / 1e9, "mbytes": n_bytes / 1e6}
         k1_rows[n] = row
         emit({"phase": "k1_mel", **row})
+
+    # Quiet bands: a loud tone over faint noise puts mel bands 75-80 dB
+    # below the clip peak, where every fp32 DFT chain rounds to ~1.5e-3 dB.
+    # K1 may not round worse than its twin there, nor past that fp32 floor
+    # as the CPU tests pin it (the twin on the card sums in another order).
+    n = 41000
+    tt = np.arange(n) / 16000.0
+    yq = (0.5 * np.sin(2 * np.pi * 220 * tt)
+          + 3e-4 * rng.standard_normal(n)).astype(np.float32)
+    yq2 = torch.from_numpy(yq).to(dev)[None]
+    got = k1.finish_db(k1.log_mel_db(yq2))[0].cpu().numpy()
+    twin = k1.finish_db(k1.log_mel_db_plain(yq2))[0].cpu().numpy()
+    yp = np.pad(yq.astype(np.float64), (200, 200))
+    frames64 = np.lib.stride_tricks.sliding_window_view(yp, 400)[::160]
+    power64 = np.abs(np.fft.rfft(
+        frames64[: k1.n_frames_for(n)]
+        * mel_ops.hann_window(400).astype(np.float64), axis=-1)) ** 2
+    ref = 10 * np.log10(np.maximum(
+        power64 @ mel_ops.mel_filterbank(16000, 400, 80).T.astype(np.float64),
+        1e-10)).T
+    ref = np.maximum(ref - ref.max(), -80.0)
+    quiet = {"kernel_vs_f64_db": float(np.abs(got - ref).max()),
+             "twin_vs_f64_db": float(np.abs(twin - ref).max())}
+    emit({"phase": "k1_quiet_band", "n": n, **quiet})
+    check(quiet["kernel_vs_f64_db"] <= quiet["twin_vs_f64_db"] + 2e-4,
+          f"K1 rounds worse than its twin at quiet bands: {quiet}")
+    check(quiet["kernel_vs_f64_db"] <= 2.5e-3,
+          f"K1 rounds past the fp32 floor at quiet bands: {quiet}")
 
     # ── 4. K2 vs its twin ─────────────────────────────────────────────
     gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -202,10 +276,10 @@ def main() -> None:
         """fp32 max |kernel - twin| (atol 2e-5), and the share of the bf16
         tolerance |d| <= 8e-3 |fp32| + 1e-5 that the bf16 kernel uses
         against the fp32 result on the same (bf16) input (<= 1 passes)."""
-        got = k2.hf_stem(video, *stem_args)
-        want = k2.hf_stem_plain(video, *stem_args)
         v16 = video.to(torch.bfloat16)
+        got = k2.hf_stem(video, *stem_args)
         got16 = k2.hf_stem(v16, *stem_args).float()
+        want = k2.hf_stem_plain(video, *stem_args)
         want16 = k2.hf_stem_plain(v16.float(), *stem_args)
         torch.cuda.synchronize()
         err32 = float((got - want).abs().max())
@@ -213,37 +287,47 @@ def main() -> None:
         used16 = float((err16 / (8e-3 * want16.abs() + 1e-5)).max())
         shape = tuple(video.shape)
         check(err32 <= 2e-5, f"K2 fp32 vs twin at {shape}: {err32}")
-        check(used16 <= 1.0,
-              f"K2 bf16 vs fp32 result at {shape}: tolerance used {used16}")
+        check(used16 <= 1.0, f"K2 bf16 vs fp32 result at {shape}: "
+                             f"tolerance used {used16}")
         return err32, float(err16.max()), used16
+
+    def k2_row(video):
+        err32, err16_max, used16 = k2_errors(video)
+        b, t, h, w, _ = video.shape
+        ho, wo = k2.out_size(h), k2.out_size(w)
+        flops = 2 * b * t * h * w * 3 * 27 + 2 * b * t * ho * wo * 32 * 81 \
+            + 2 * b * t * ho * wo * 32
+        io32 = 4 * (video.numel() + b * t * ho * wo * 32)
+        row = {"shape": list(video.shape), "max_abs_err": err32,
+               "bf16_max_abs_err": err16_max, "bf16_tolerance_used": used16,
+               "gflop": flops / 1e9, "mbytes_fp32": io32 / 1e6,
+               "bound_basis": TENSOR}
+        for dtype, tag, io in ((torch.float32, "", io32),
+                               (torch.bfloat16, "bf16_", io32 / 2)):
+            v = video.to(dtype)
+            kms, pms = in_turns(lambda: k2.hf_stem(v, *stem_args),
+                                lambda: k2.hf_stem_plain(v, *stem_args),
+                                iters=10)
+            bms, bby = bound_ms(io, flops, TENSOR)
+            row.update({f"{tag}kernel_ms": kms, f"{tag}plain_ms": pms,
+                        f"{tag}kernel_over_plain": kms / pms,
+                        f"{tag}bound_ms": bms, f"{tag}bound_by": bby,
+                        f"{tag}bound_share": bms / kms})
+            del v
+        return row
 
     odd = torch.rand(2, 4, 15, 10, 3, generator=gen).to(dev)
     odd_err32, _, odd_used16 = k2_errors(odd)
-    video = torch.rand(16, 32, 96, 96, 3, generator=gen).to(dev)
-    v16 = video.to(torch.bfloat16)
-    err32, err16_max, used16 = k2_errors(video)
-    b, t, h, w, _ = video.shape
-    ho, wo = k2.out_size(h), k2.out_size(w)
-    flops = 2 * b * t * h * w * 3 * 27 + 2 * b * t * ho * wo * 32 * 81 \
-        + 2 * b * t * ho * wo * 32
-    io32 = 4 * (video.numel() + b * t * ho * wo * 32)
-    bms32, bby32 = bound_ms(io32, flops)
-    bms16, bby16 = bound_ms(io32 / 2, flops)
-    k2_row = {
-        "shape": list(video.shape), "max_abs_err": err32,
-        "bf16_max_abs_err": err16_max, "bf16_tolerance_used": used16,
-        "odd_shape": list(odd.shape), "odd_max_abs_err": odd_err32,
-        "odd_bf16_tolerance_used": odd_used16,
-        "kernel_ms": time_ms(lambda: k2.hf_stem(video, *stem_args)),
-        "plain_ms": time_ms(lambda: k2.hf_stem_plain(video, *stem_args)),
-        "bf16_kernel_ms": time_ms(lambda: k2.hf_stem(v16, *stem_args)),
-        "bf16_plain_ms": time_ms(lambda: k2.hf_stem_plain(v16, *stem_args)),
-        "bound_ms": bms32, "bound_by": bby32,
-        "bf16_bound_ms": bms16, "bf16_bound_by": bby16,
-        "gflop": flops / 1e9, "mbytes_fp32": io32 / 1e6,
-    }
-    emit({"phase": "k2_hf_stem", **k2_row})
-    del video, v16, odd
+    emit({"phase": "k2_hf_stem", "shape": list(odd.shape),
+          "max_abs_err": odd_err32, "bf16_tolerance_used": odd_used16})
+    del odd
+    k2_rows = {}
+    for b in (1, 16, 128):
+        video = torch.rand(b, 32, 96, 96, 3, generator=gen).to(dev)
+        k2_rows[b] = k2_row(video)
+        emit({"phase": "k2_hf_stem", **k2_rows[b]})
+        del video
+    torch.cuda.empty_cache()
 
     # ── 5. requests at full width ─────────────────────────────────────
     cfg = ModelConfig()
@@ -431,6 +515,7 @@ def main() -> None:
     # ── 6. kernels ────────────────────────────────────────────────────
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
+    k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
     emit({"kernels": [
         {"name": "log_mel", "route": "cuda",
          "source": "lipsync_tpu_torch/csrc/mel.cu",
@@ -438,14 +523,16 @@ def main() -> None:
          "launches": main_launches["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-         "bound_by": m["bound_by"], "library_ms": m["library_ms"]},
+         "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
+         "library_ms": m["library_ms"]},
         {"name": "hf_stem", "route": "cuda",
          "source": "lipsync_tpu_torch/csrc/hf_stem.cu",
          "replaces": "lipsync_tpu/ops/pallas/hf_stem.py:174",
          "launches": main_launches["hf_stem"],
-         "max_abs_err": k2_row["max_abs_err"], "ms": k2_row["kernel_ms"],
-         "plain_ms": k2_row["plain_ms"], "bound_ms": k2_row["bound_ms"],
-         "bound_by": k2_row["bound_by"], "library_ms": None},
+         "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
+         "plain_ms": k2m["plain_ms"], "bound_ms": k2m["bound_ms"],
+         "bound_by": k2m["bound_by"], "bound_basis": k2m["bound_basis"],
+         "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,12 @@ wrapper and its twin.
 Counterpart of ``ops/pallas/hf_stem.py::hf_stem_fused`` in the JAX package:
 ``relu(BN_eval(conv1(laplacian(video))))`` of the artifact branch. The
 wrapper takes the module parameters in torch layouts, folds BatchNorm and
-the conv bias into one scale and shift exactly as the JAX wrapper does, and
-launches the CUDA kernel for a CUDA tensor. The plain twin
+the conv bias into one scale and shift exactly as the JAX wrapper does,
+picks the run of output frames per block (:func:`run_length`), and
+launches the CUDA kernel for a CUDA tensor. The kernel packs conv1 for the
+tensor cores in its prologue; :func:`pack_w1` is that packing in plain
+torch, the reference that the CPU tests hold the fragment order to. The
+plain twin
 (:func:`hf_stem_plain`: ``F.conv2d`` + ``F.conv3d`` + BN + ReLU in fp32)
 runs only for a CPU tensor.
 """
@@ -22,6 +26,8 @@ from lipsync_tpu_torch.ops.kernels import build
 
 C_OUT = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+K_STEPS = 12  # conv1's K = 3 frames x 32 (27 taps + 5 zero rows), by 8
+TILE = 16     # output tile edge of one block
 
 # Launches of the CUDA kernel in this process (the CPU twin does not count).
 launches = 0
@@ -46,6 +52,58 @@ def fold_bn(
     scale = g * inv
     shift = (conv_bias.float() - bn_mean.float()) * inv * g + bn_bias.float()
     return scale, shift
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def conv1_matrix(conv_weight: torch.Tensor) -> torch.Tensor:
+    """conv1 ``(32, 3, 3, 3, 3)`` (OITHW) as the kernel's ``(96, 32)`` GEMM
+    operand: row ``dt*32 + (dx*3 + dy)*3 + ci``; rows 27-31 of each frame
+    are zero."""
+    w = conv_weight.float().permute(2, 4, 3, 1, 0).reshape(3, 27, C_OUT)
+    return F.pad(w, (0, 0, 0, 5)).reshape(3 * 32, C_OUT)
+
+
+def pack_w1(conv_weight: torch.Tensor) -> torch.Tensor:
+    """conv1 packed for ``mma.sync m16n8k8`` TF32 as the kernel's prologue
+    packs it into shared memory, flat fp32: entry
+    ``[ks][nt][lane][4]`` holds the B fragment of k-step ``ks`` and 8-column
+    tile ``nt`` for ``lane = 4*g + tig``: ``hi[k0][n], hi[k0+4][n],
+    lo[k0][n], lo[k0+4][n]`` with ``k0 = 8*ks + tig``, ``n = 8*nt + g``,
+    ``hi = tf32(w)`` and ``lo = tf32(w - hi)``."""
+    wk = conv1_matrix(conv_weight)
+    hi = tf32_round(wk)
+    lo = tf32_round(wk - hi)
+    ar = lambda n: torch.arange(n, device=wk.device)  # noqa: E731
+    ks = ar(K_STEPS).view(-1, 1, 1, 1)
+    nt = ar(C_OUT // 8).view(1, -1, 1, 1)
+    g = ar(8).view(1, 1, -1, 1)
+    tig = ar(4).view(1, 1, 1, -1)
+    k0, n = (8 * ks + tig).expand(-1, 4, 8, -1), (8 * nt + g).expand(
+        K_STEPS, -1, -1, 4)
+    frag = torch.stack([hi[k0, n], hi[k0 + 4, n], lo[k0, n], lo[k0 + 4, n]],
+                       dim=-1)
+    return frag.reshape(-1).contiguous()
+
+
+def run_length(b: int, t: int, h: int, w: int, n_sms: int) -> int:
+    """Output frames per block. A block costs about its run plus the two
+    halo Laplacians and its start (~1.5 frames), and the blocks run in waves
+    of two per SM: pick the run that minimises waves x (run + 1.5), the
+    longer run on a tie."""
+    tiles = -(-out_size(h) // TILE) * -(-out_size(w) // TILE)
+    slots = 2 * n_sms
+
+    def cost(run):
+        waves = -(-b * tiles * -(-t // run) // slots)
+        return waves * (run + 1.5)
+
+    return min(range(t, 0, -1), key=cost)
 
 
 def hf_stem_plain(
@@ -114,18 +172,20 @@ def hf_stem(
     if b * t == 0 or h == 0 or w == 0:
         raise ValueError(f"empty video {tuple(video.shape)}")
     ho, wo = out_size(h), out_size(w)
-    wlap = lap_weight.float().permute(2, 3, 1, 0).contiguous()  # dy,dx,ci,co
-    w1 = conv_weight.float().permute(2, 3, 4, 1, 0).contiguous()
+    wlap = lap_weight.float().contiguous()
+    w1 = conv_weight.float().contiguous()
     scale, shift = fold_bn(conv_bias, bn_weight, bn_bias, bn_mean, bn_var, eps)
     out = torch.empty((b, t, ho, wo, C_OUT), dtype=video.dtype,
                       device=video.device)
+    n_sms = torch.cuda.get_device_properties(video.device).multi_processor_count
     lib = _library()
     with torch.cuda.device(video.device):
         stream = torch.cuda.current_stream(video.device).cuda_stream
         err = lib.lipsync_hf_stem(
             video.data_ptr(), _DTYPES[video.dtype], wlap.data_ptr(),
             w1.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), b, t, h, w, ho, wo, stream,
+            out.data_ptr(), b, t, h, w, ho, wo,
+            run_length(b, t, h, w, n_sms), stream,
         )
     if err != 0:
         raise RuntimeError(f"hf_stem kernel launch failed: cudaError {err}")
@@ -133,12 +193,24 @@ def hf_stem(
     return out
 
 
+def blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of the kernel for ``dtype`` that one SM holds at once (CUDA's
+    occupancy calculator)."""
+    n = _library().lipsync_hf_stem_blocks_per_sm(_DTYPES[dtype])
+    if n < 0:
+        raise RuntimeError(f"hf_stem occupancy query failed: cudaError {-n}")
+    return n
+
+
 def _library() -> ctypes.CDLL:
     lib = build.library("hf_stem")
     fn = lib.lipsync_hf_stem
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    occ = lib.lipsync_hf_stem_blocks_per_sm
+    occ.argtypes = [ctypes.c_int]
+    occ.restype = ctypes.c_int
     return lib

@@ -25,6 +25,7 @@ SR, N_FFT, HOP, N_MELS = 16000, 400, 160, 80
 launches = 0
 
 _tables: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+_kernel_tables: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
 
 
 def _host_tables() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -48,6 +49,41 @@ def tables(device: torch.device) -> Tuple[torch.Tensor, ...]:
             torch.from_numpy(t).to(device) for t in _host_tables()
         )
     return _tables[device]
+
+
+def _host_kernel_tables() -> Tuple[np.ndarray, ...]:
+    """The kernel's tables: the Hann window ``(400,)``, the twiddles
+    ``cos, sin(2*pi*m/400)`` ``(400,)`` (float64, cast to fp32), the
+    transposed filterbank ``(201, 80)`` and each mel band's support
+    ``(80, 2)``: its first and last nonzero bin (``(0, -1)`` if none). The
+    kernel reads basis entry ``(n, k)`` as ``window[n] * twiddle[n*k % 400]``."""
+    ang = 2.0 * np.pi * np.arange(N_FFT) / N_FFT
+    fbt = np.ascontiguousarray(mel_filterbank(SR, N_FFT, N_MELS).T)
+    bands = np.zeros((N_MELS, 2), np.int32)
+    bands[:, 1] = -1
+    for m in range(N_MELS):
+        nz = np.flatnonzero(fbt[:, m])
+        if nz.size:
+            bands[m] = nz[0], nz[-1]
+    return (hann_window(N_FFT).astype(np.float32),
+            np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32),
+            fbt, bands)
+
+
+def kernel_tables(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """``(window, cos, sin, fbt, bands)`` on ``device``, built once."""
+    device = torch.device(device)
+    if device not in _kernel_tables:
+        _kernel_tables[device] = tuple(
+            torch.from_numpy(t).to(device) for t in _host_kernel_tables()
+        )
+    return _kernel_tables[device]
+
+
+def frames_per_block(b: int, t: int, n_sms: int) -> int:
+    """K1's frames per block: 8 where ``b`` clips of ``t`` frames still give
+    every SM a block at 8, else 3."""
+    return 8 if b * -(-t // 8) >= n_sms else 3
 
 
 def n_frames_for(n: int) -> int:
@@ -85,14 +121,16 @@ def log_mel_db(y: torch.Tensor) -> torch.Tensor:
     if b == 0 or n == 0:
         raise ValueError("empty PCM")
     t = n_frames_for(n)
-    wc, ws, fbt = tables(y.device)
+    win, twc, tws, fbt, bands = kernel_tables(y.device)
     out = torch.empty((b, N_MELS, t), dtype=torch.float32, device=y.device)
+    n_sms = torch.cuda.get_device_properties(y.device).multi_processor_count
     lib = _library()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = lib.lipsync_log_mel(
-            y.data_ptr(), wc.data_ptr(), ws.data_ptr(), fbt.data_ptr(),
-            out.data_ptr(), b, n, t, stream,
+            y.data_ptr(), win.data_ptr(), twc.data_ptr(), tws.data_ptr(),
+            fbt.data_ptr(), bands.data_ptr(), out.data_ptr(), b, n, t,
+            frames_per_block(b, t, n_sms), stream,
         )
     if err != 0:
         raise RuntimeError(f"log_mel kernel launch failed: cudaError {err}")
@@ -103,7 +141,7 @@ def log_mel_db(y: torch.Tensor) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = build.library("mel")
     fn = lib.lipsync_log_mel
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
