@@ -10,14 +10,15 @@ each printed as one JSON line:
 2. the ``nvcc`` build of every kernel (``csrc/*.cu``, one compiler per
    source, all started together), with its seconds, ptxas's registers,
    shared memory and spills (none allowed) and K2's blocks per SM (>= 2);
-3. K1 (log-mel) against its plain twin at 16384 / 65536 / 262144 /
-   1048576 samples (< 1e-3 dB), with kernel, twin, library (``ops/mel.py``'s
+3. K1 (log-mel) against its plain twin at 16384 / 32768 / 65536 / 262144
+   / 1048576 samples (< 1e-3 dB), with kernel, twin, library (``ops/mel.py``'s
    rFFT chain) and bound times, and on a quiet-band signal against a
    float64 DFT of the same chain (K1 no further than the twin + 2e-4 dB,
    and within the 2.5e-3 dB fp32 floor that the CPU tests pin);
 4. K2 (HF stem) against its twin at every main-path batch, (B, 32, 96, 96,
-   3) for B = 1 / 16 / 128, and at an odd, non-square (2, 4, 15, 10, 3)
-   that leaves partial output tiles: fp32 atol 2e-5, bf16 within
+   3) for B = 1 / 16 / 128 and the refinement's half windows (4, 16, 96,
+   96, 3), and at an odd, non-square (2, 4, 15, 10, 3) that leaves partial
+   output tiles: fp32 atol 2e-5, bf16 within
    |d| <= 8e-3 |fp32| + 1e-5 of the fp32 result on the same input; kernel,
    twin and bound times in both dtypes;
 5. three requests at the full width of ``ModelConfig()``, each crop ->
@@ -32,9 +33,28 @@ each printed as one JSON line:
    bf16 and must advance both launch counters on each. For both sets, fp32
    logits must be within 1e-3 of the same request with the twins on the
    card, and bf16 probabilities within 4e-3 of fp32. Warm latency is the
-   median of 5.
+   median of 5;
+6. ``Predictor.predict`` from a clip to a verdict, at the same width and on
+   the same calibrated weights, through the served bf16 engine and the fp32
+   one: clip S (30 frames + 2.0 s, the short path with refinement and the
+   mouth-motion check) and clip L (150 frames + 10 s, the pipelined long
+   path, and the batch path once more in bf16), both from
+   ``utils/synthetic.py``. The clips are held in memory (``INGEST`` says
+   why); the detector is a ``FakeDetector`` with each clip's mouth box. The
+   engines must give the same verdict and selected track, |dconfidence| <=
+   4e-3; pipelined and batch L the same verdict and window probabilities
+   within 1e-3; the fp32 S and L the same verdict, confidence and window
+   probabilities within 1e-3 of the same ``predict`` with the twins on the
+   card; every ``predict`` must launch K1 and K2; and
+   ``predict_from_path`` on a missing file must raise FileNotFoundError.
+   Per clip and engine: the median of 5 warm latencies, the predictor's own
+   preprocessing / inference split, host stage times and the device's idle
+   share.
 
-Then a ``kernels`` line, the ``nvidia-smi`` line, and the result line
+Phases 5 and 6 record the shape and dtype of every input that their main
+runs give each kernel's wrapper; each must be one that phase 3 or 4 held
+against the twin (the ``main_path_shapes`` line). Then a ``kernels`` line,
+the ``nvidia-smi`` line, and the result line
 ``{"ok": true, "device": {...}}``. Every fp32 comparison runs with TF32 off
 (``torch.backends.cudnn.allow_tf32`` defaults to True). Any failure raises
 and exits non-zero; nothing is printed as a result when CUDA or the package
@@ -45,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import re
 import statistics
 import subprocess
@@ -95,6 +116,368 @@ def nvidia_smi() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+# How a clip reaches the predictor on the card. The card's machine has no
+# FFmpeg libraries or headers (its ldconfig lists no libavformat or
+# libavcodec, and /usr/include has no libavformat), so the native ingest
+# cannot be built there. The phase keeps each clip in memory and stands in
+# for the port's ``ingest.probe``, ``read_video`` and ``read_audio`` only;
+# everything from the frames onward is the port's own code.
+INGEST = "in_memory"
+
+
+class InMemoryClips:
+    """Readers with the signatures of ``preprocessing/ingest.py`` that
+    serve clips held in memory by path; any other path raises
+    ``FileNotFoundError``."""
+
+    def __init__(self, ingest_mod, fps: float):
+        self.ingest = ingest_mod
+        self.fps = fps
+        self.clips = {}
+
+    def add(self, name: str, frames, pcm) -> str:
+        path = f"/in-memory/{name}.avi"
+        self.clips[path] = (frames, pcm)
+        return path
+
+    def _get(self, path):
+        try:
+            return self.clips[str(path)]
+        except KeyError:
+            raise FileNotFoundError(str(path)) from None
+
+    def probe(self, path):
+        frames, pcm = self._get(path)
+        return self.ingest.MediaInfo(
+            width=frames.shape[2], height=frames.shape[1], fps=self.fps,
+            duration_sec=len(frames) / self.fps, nb_frames=len(frames),
+            has_audio=True, sample_rate=16000)
+
+    def read_video(self, path, target_fps=15.0, max_total_frames=None,
+                   out_size=None):
+        check(target_fps == self.fps and out_size is None,
+              "the in-memory clips are stored at the target rate and size")
+        frames = self._get(path)[0]
+        return frames[:max_total_frames].copy()
+
+    def read_audio(self, path, sr=16000):
+        check(sr == 16000, "the in-memory clips hold 16 kHz PCM")
+        return self._get(path)[1].copy()
+
+    @contextlib.contextmanager
+    def installed(self):
+        saved = (self.ingest.probe, self.ingest.read_video,
+                 self.ingest.read_audio)
+        self.ingest.probe = self.probe
+        self.ingest.read_video = self.read_video
+        self.ingest.read_audio = self.read_audio
+        try:
+            yield
+        finally:
+            (self.ingest.probe, self.ingest.read_video,
+             self.ingest.read_audio) = saved
+
+
+@contextlib.contextmanager
+def kernel_inputs(seen: dict):
+    """While open, adds the (shape, dtype) of every input that a kernel's
+    wrapper gets to ``seen[name]``; the wrapper runs as it would."""
+    from lipsync_tpu_torch.models import artifact as artifact_mod
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+
+    saved = (k1.log_mel_db, artifact_mod.hf_stem)
+
+    def logged(name, fn):
+        def call(x, *args, **kwargs):
+            seen.setdefault(name, set()).add(shape_key(x))
+            return fn(x, *args, **kwargs)
+        return call
+
+    k1.log_mel_db = logged("log_mel", saved[0])
+    artifact_mod.hf_stem = logged("hf_stem", saved[1])
+    try:
+        yield
+    finally:
+        k1.log_mel_db, artifact_mod.hf_stem = saved
+
+
+def shape_key(x) -> tuple:
+    return tuple(x.shape), str(x.dtype).removeprefix("torch.")
+
+
+class StageClock:
+    """Host time per stage, summed over the wrapped functions' calls. An
+    outer stage counts only when no other outer stage is running, so the
+    outer stages add up without overlap; an inner stage (``inner=True``) is
+    a part of an outer one, timed on its own. A wrapped function either
+    reads its result back to the host (its time includes the device's) or
+    only enqueues device work (its time is the host's enqueue)."""
+
+    def __init__(self):
+        self.ms = {}
+        self.outer = set()
+        self._depth = 0
+        self._saved = []
+
+    def wrap(self, owner, attr: str, stage: str, inner: bool = False):
+        fn = getattr(owner, attr)
+        if not inner:
+            self.outer.add(stage)
+
+        def timed(*args, **kwargs):
+            counted = inner or self._depth == 0
+            self._depth += not inner
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth -= not inner
+                if counted:
+                    self.ms[stage] = (self.ms.get(stage, 0.0)
+                                      + (time.perf_counter() - t0) * 1e3)
+
+        self._saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved.clear()
+
+
+class PredictorLog(logging.Handler):
+    """Keeps the predictor's own log records: their arguments hold its
+    ``perf_counter`` points (preprocessing, inference and total ms)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def split_ms(self):
+        """(preprocessing, inference, total) ms of the last ``predict``."""
+        pre = inf = total = None
+        for r in self.records:
+            msg = r.msg
+            if msg.startswith("Preprocessing completed"):
+                pre = float(r.args[0])
+            elif msg.startswith("Inference completed"):
+                total, inf = float(r.args[3]), float(r.args[4])
+            elif msg.startswith("Long-video inference done"):
+                total, pre, inf = (float(r.args[4]), float(r.args[5]),
+                                   float(r.args[6]))
+        return {"preprocessing": pre, "inference": inf, "total": total}
+
+
+def predictor_phase(eng16, eng32, cfg, profile_served, plain_kernels,
+                    record) -> dict:
+    """``Predictor.predict`` on two in-memory clips at full width, on the
+    served bf16 engine and the fp32 one. S (30 frames, 2.0 s) takes the
+    short path with refinement (``refine_margin`` 1.5 sends its one track
+    through ``_temporal_smoothed_confidence``) and the mouth-motion check;
+    L (150 frames, 10 s) the pipelined long path, and once more the batch
+    path. The detector is a ``FakeDetector`` with the clip's mouth box on
+    every frame. ``plain_kernels`` puts the twins in the kernels' place;
+    ``record`` records the kernels' inputs over the main run. Returns the
+    kernels' launches over the main run."""
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.inference import pipelined as pipelined_mod
+    from lipsync_tpu_torch.inference import predictor as predictor_mod
+    from lipsync_tpu_torch.inference.predictor import (
+        Predictor,
+        PredictorConfig,
+    )
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.preprocessing import audio as audio_mod
+    from lipsync_tpu_torch.preprocessing import haar
+    from lipsync_tpu_torch.preprocessing import ingest
+    from lipsync_tpu_torch.preprocessing import video as video_mod
+    from lipsync_tpu_torch.preprocessing.face_detection import FakeDetector
+    from lipsync_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(SEED)
+    clips = {"S": synthetic.request(rng, 30, 2.0),
+             "L": synthetic.request(rng, 150, 150 / synthetic.FPS)}
+    memory = InMemoryClips(ingest, synthetic.FPS)
+    paths = {name: memory.add(name, frames, pcm)
+             for name, (frames, _, pcm) in clips.items()}
+    configs = {"S": PredictorConfig(refine_margin=1.5),
+               "L": PredictorConfig(),
+               "L_batch": PredictorConfig(pipelined_long_video=False)}
+    engines = {"bf16": eng16, "fp32": eng32}
+
+    def predictor(run: str, dtype: str) -> Predictor:
+        boxes = clips[run[0]][1]
+        return Predictor(
+            config=configs[run], model_config=cfg, engine=engines[dtype],
+            detector_backend=FakeDetector(lambda i: [boxes[i]]))
+
+    log = PredictorLog()
+    plog = logging.getLogger(predictor_mod.__name__)
+    saved_handlers = plog.handlers[:]
+    plog.handlers = [log]
+
+    def predict(run: str, dtype: str, pred=None):
+        """One synchronised ``predict``: (result, K1 and K2 launches,
+        seconds)."""
+        pred = pred or predictor(run, dtype)
+        torch.cuda.synchronize()
+        before = (k1.launches, k2.launches)
+        t0 = time.perf_counter()
+        result = pred.predict(paths[run[0]])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return result, (k1.launches - before[0],
+                        k2.launches - before[1]), seconds
+
+    def window_probs(result):
+        return np.asarray(result["tracks"][0]["window_confidences"])
+
+    runs = [(run, dtype) for run in ("S", "L") for dtype in ("bf16", "fp32")]
+    runs.append(("L_batch", "bf16"))
+    compare = {}
+    with memory.installed():
+        # The main run: every count set to 0, each clip predicted once per
+        # engine, and L once more through the batch path.
+        k1.launches = k2.launches = 0
+        results, launches = {}, {}
+        with record():
+            for run, dtype in runs:
+                results[run, dtype], launches[run, dtype], _ = predict(
+                    run, dtype)
+        main_launches = {"log_mel": k1.launches, "hf_stem": k2.launches}
+
+        # fp32 S and L once more with the twins in the kernels' place.
+        for clip in ("S", "L"):
+            with plain_kernels():
+                twin, n, _ = predict(clip, "fp32")
+            check(n == (0, 0), "the twin run launched a kernel")
+            r32 = results[clip, "fp32"]
+            p32, p_twin = window_probs(r32), window_probs(twin)
+            compare[f"{clip}_fp32_kernels_vs_twins"] = {
+                "same_verdict": r32["verdict"] == twin["verdict"],
+                "abs_dconfidence": abs(r32["confidence"] - twin["confidence"]),
+                "max_abs_dprob": (float(np.abs(p32 - p_twin).max())
+                                  if len(p32) == len(p_twin) else None),
+            }
+
+        rows = {}
+        for run, dtype in runs:
+            r = results[run, dtype]
+            rows[run, dtype] = {
+                "verdict": r["verdict"], "confidence": r["confidence"],
+                "selected_track_id": r["selected_track_id"],
+                "tracks": len(r["tracks"] or []),
+                "windows": len(window_probs(r)) if r["tracks"] else 0,
+                "launches": {"log_mel": launches[run, dtype][0],
+                             "hf_stem": launches[run, dtype][1]},
+            }
+        for clip in ("S", "L"):
+            r16, r32 = results[clip, "bf16"], results[clip, "fp32"]
+            compare[f"{clip}_bf16_vs_fp32"] = {
+                "same_verdict": r16["verdict"] == r32["verdict"],
+                "same_track": (r16["selected_track_id"]
+                               == r32["selected_track_id"]),
+                "abs_dconfidence": abs(r16["confidence"] - r32["confidence"]),
+            }
+        pipe, batch = results["L", "bf16"], results["L_batch", "bf16"]
+        p_pipe, p_batch = window_probs(pipe), window_probs(batch)
+        compare["L_pipelined_vs_batch_bf16"] = {
+            "same_verdict": pipe["verdict"] == batch["verdict"],
+            "windows": [len(p_pipe), len(p_batch)],
+            "max_abs_dprob": (float(np.abs(p_pipe - p_batch).max())
+                              if len(p_pipe) == len(p_batch) else None),
+        }
+        try:
+            predictor("S", "bf16").predict_from_path("/no/such/clip.avi")
+            missing = "returned"
+        except FileNotFoundError:
+            missing = "FileNotFoundError"
+        emit({"phase": "predictor", "ingest": INGEST,
+              "runs": {f"{r}_{d}": row for (r, d), row in rows.items()},
+              "compare": compare, "main_launches": main_launches,
+              "predict_from_path_missing": missing})
+
+        # Every number is printed before any of them is checked.
+        for (run, dtype), (n1, n2) in launches.items():
+            check(n1 >= 1 and n2 >= 1, f"predict {run} {dtype} did not "
+                                       f"launch both kernels: {n1}, {n2}")
+        for name, c in compare.items():
+            check(c["same_verdict"], f"{name}: verdicts differ")
+            if "same_track" in c:
+                check(c["same_track"], f"{name}: selected tracks differ")
+            # bf16 vs fp32 within 4e-3; fp32 kernels vs twins within 1e-3
+            bound = 4e-3 if "bf16_vs_fp32" in name else 1e-3
+            if "abs_dconfidence" in c:
+                check(c["abs_dconfidence"] <= bound,
+                      f"{name}: |dconfidence| {c['abs_dconfidence']}")
+            if "max_abs_dprob" in c:
+                check(c["max_abs_dprob"] is not None
+                      and c["max_abs_dprob"] <= 1e-3,
+                      f"{name}: window probabilities {c}")
+        check(missing == "FileNotFoundError",
+              "predict_from_path on a missing file did not raise")
+
+        # Latency, the stage split and the device's idle share.
+        for run, dtype in runs:
+            pred = predictor(run, dtype)
+            times = [predict(run, dtype, pred)[2] for _ in range(5)]
+            prof = profile_served(lambda: pred.predict(paths[run[0]]))
+            clock = StageClock()
+            clock.wrap(ingest, "read_video", "decode")
+            clock.wrap(predictor_mod, "preprocess_audio", "audio")
+            clock.wrap(audio_mod, "preprocess_audio_pcm", "mel", inner=True)
+            clock.wrap(predictor_mod, "detect_voice_activity", "vad")
+            clock.wrap(pred.backend, "detect", "detection")
+            clock.wrap(video_mod, "track_faces", "tracking")
+            clock.wrap(video_mod, "crop_track_on_device", "crop_device")
+            clock.wrap(pipelined_mod, "crop_mouth_uint8", "crop_host")
+            for attr in ("score_probs", "score_track_probs"):
+                clock.wrap(pred.engine, attr, "scoring")
+            clock.wrap(pred.engine, "dispatch_track_logits",
+                       "scoring_dispatch")
+            log.records.clear()
+            try:
+                _, n, seconds = predict(run, dtype, pred)
+            finally:
+                clock.restore()
+            outer = sum(v for k, v in clock.ms.items() if k in clock.outer)
+            split = log.split_ms()
+            emit({"phase": "predictor_latency", "run": run, "dtype": dtype,
+                  "frames": len(clips[run[0]][0]),
+                  "latency_ms_median5": statistics.median(times) * 1e3,
+                  "latency_ms_all": [t * 1e3 for t in times],
+                  "launches_per_predict": {"log_mel": n[0], "hf_stem": n[1]},
+                  "predictor_split_ms": split,
+                  "stage_ms": clock.ms,
+                  # tracking inside the pipelined loop, the device readback
+                  # of the pipelined path, speaking scores and the policy
+                  "stage_ms_rest": seconds * 1e3 - outer,
+                  "profile": prof})
+            check(None not in split.values(),
+                  f"the predictor's log gave no split for {run}: {split}")
+
+        # The default detector, where the card has the cascade files.
+        frontal = haar.find_cascade_file("haarcascade_frontalface_default.xml")
+        if frontal is None:
+            emit({"phase": "predictor_default_backend",
+                  "skipped": "no haarcascade_frontalface_default.xml under "
+                             + " or ".join(haar.CASCADE_SEARCH_DIRS)})
+        else:
+            result = Predictor(config=configs["L"], model_config=cfg,
+                               engine=eng16).predict(paths["L"])
+            emit({"phase": "predictor_default_backend",
+                  "tracks": len(result["tracks"] or []),
+                  "verdict": result["verdict"]})
+    plog.handlers = saved_handlers
+    return main_launches
 
 
 def main() -> None:
@@ -201,7 +584,8 @@ def main() -> None:
                     + 3 * (n_fft // 2 + 1) + 2 * support)
 
     k1_rows = {}
-    for n in (16384, 65536, 262144, 1 << 20):
+    checked = {"log_mel": set(), "hf_stem": set()}
+    for n in (16384, 32768, 65536, 262144, 1 << 20):
         y2 = torch.from_numpy(synthetic.pcm(rng, n)).to(dev)[None]
         t = k1.n_frames_for(n)
         got = k1.finish_db(k1.log_mel_db(y2))
@@ -211,6 +595,7 @@ def main() -> None:
         err = float((got - want).abs().max())
         err_lib = float((got[0] - lib).abs().max())
         check(err < 1e-3, f"K1 vs twin at n={n}: {err} dB")
+        checked["log_mel"].add(shape_key(y2))
         flops = k1_flops(t)
         n_bytes = 4 * (n + 80 * t) + k1_bytes
         bms, bby = bound_ms(n_bytes, flops)
@@ -289,6 +674,7 @@ def main() -> None:
         check(err32 <= 2e-5, f"K2 fp32 vs twin at {shape}: {err32}")
         check(used16 <= 1.0, f"K2 bf16 vs fp32 result at {shape}: "
                              f"tolerance used {used16}")
+        checked["hf_stem"].update({shape_key(video), shape_key(v16)})
         return err32, float(err16.max()), used16
 
     def k2_row(video):
@@ -316,11 +702,14 @@ def main() -> None:
             del v
         return row
 
-    odd = torch.rand(2, 4, 15, 10, 3, generator=gen).to(dev)
-    odd_err32, _, odd_used16 = k2_errors(odd)
-    emit({"phase": "k2_hf_stem", "shape": list(odd.shape),
-          "max_abs_err": odd_err32, "bf16_tolerance_used": odd_used16})
-    del odd
+    # An odd shape with partial output tiles, and the refinement's three
+    # half windows of clip S (phase 6) in their bucket of 4.
+    for shape in ((2, 4, 15, 10, 3), (4, 16, 96, 96, 3)):
+        video = torch.rand(*shape, generator=gen).to(dev)
+        err32, _, used16 = k2_errors(video)
+        emit({"phase": "k2_hf_stem", "shape": list(shape),
+              "max_abs_err": err32, "bf16_tolerance_used": used16})
+        del video
     k2_rows = {}
     for b in (1, 16, 128):
         video = torch.rand(b, 32, 96, 96, 3, generator=gen).to(dev)
@@ -428,13 +817,16 @@ def main() -> None:
     check(eng16.model.dtype == torch.bfloat16, "served engine is not bf16")
 
     # The main path: every count set to 0, the three requests served once.
+    seen = {}
     k1.launches = k2.launches = 0
     served, per_request = {}, {}
-    for name, req in requests.items():
-        before = (k1.launches, k2.launches)
-        served[name] = serve(eng16, *req)
-        torch.cuda.synchronize()
-        per_request[name] = (k1.launches - before[0], k2.launches - before[1])
+    with kernel_inputs(seen):
+        for name, req in requests.items():
+            before = (k1.launches, k2.launches)
+            served[name] = serve(eng16, *req)
+            torch.cuda.synchronize()
+            per_request[name] = (k1.launches - before[0],
+                                 k2.launches - before[1])
     main_launches = {"log_mel": k1.launches, "hf_stem": k2.launches}
     for name, (n1, n2) in per_request.items():
         check(n1 >= 1 and n2 >= 1,
@@ -512,7 +904,21 @@ def main() -> None:
               "windows_per_s_fp32": n_win / lat32,
               "stage_ms_bf16": stages, "profile_bf16": prof})
 
-    # ── 6. kernels ────────────────────────────────────────────────────
+    # ── 6. the predictor: a clip in, a verdict out ────────────────────
+    predictor_launches = predictor_phase(
+        eng16, eng32, cfg, profile_served, plain_kernels,
+        lambda: kernel_inputs(seen))
+
+    # Every input shape that the main runs gave a kernel was checked above.
+    unchecked = {name: sorted(shapes - checked[name])
+                 for name, shapes in seen.items()}
+    emit({"phase": "main_path_shapes",
+          "seen": {name: sorted(v) for name, v in seen.items()},
+          "unchecked": unchecked})
+    check(not any(unchecked.values()),
+          f"main-path kernel inputs not held against the twin: {unchecked}")
+
+    # ── 7. kernels ────────────────────────────────────────────────────
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
@@ -521,6 +927,7 @@ def main() -> None:
          "source": "lipsync_tpu_torch/csrc/mel.cu",
          "replaces": "lipsync_tpu/ops/pallas/mel_kernel.py:65",
          "launches": main_launches["log_mel"],
+         "launches_predictor": predictor_launches["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
@@ -529,6 +936,7 @@ def main() -> None:
          "source": "lipsync_tpu_torch/csrc/hf_stem.cu",
          "replaces": "lipsync_tpu/ops/pallas/hf_stem.py:174",
          "launches": main_launches["hf_stem"],
+         "launches_predictor": predictor_launches["hf_stem"],
          "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
          "plain_ms": k2m["plain_ms"], "bound_ms": k2m["bound_ms"],
          "bound_by": k2m["bound_by"], "bound_basis": k2m["bound_basis"],

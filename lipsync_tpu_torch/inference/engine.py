@@ -93,6 +93,8 @@ class ScoringEngine:
         self.model.to(self.device).eval()
         self.calibrator = calibrator or Calibrator()
         self.max_batch = int(max_batch)
+        # Groups a streaming caller keeps enqueued before reading one back.
+        self.max_in_flight = 2
 
     @property
     def variables(self) -> Dict[str, torch.Tensor]:

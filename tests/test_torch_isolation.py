@@ -60,6 +60,48 @@ def test_get_device_raises_without_cuda(monkeypatch):
     assert get_device("cpu") == torch.device("cpu")
 
 
+def _native_sources():
+    """(mtime, sha256) of every source file under ``native/`` (the ``.so``
+    files there are the JAX package's build outputs, which its own tests
+    may write at any time)."""
+    import hashlib
+
+    return {
+        p.name: (p.stat().st_mtime_ns, hashlib.sha256(p.read_bytes()).digest())
+        for p in sorted((ROOT / "native").iterdir())
+        if p.is_file() and p.suffix != ".so"
+    }
+
+
+def test_native_libraries_build_outside_native(tmp_path):
+    """The port compiles native/*.cc into a build directory of its own: it
+    writes nothing under native/, each library loads with the symbols its
+    binding declares, and building and binding them loads no JAX."""
+    before = _native_sources()
+    assert {"Makefile", "ingest.cc", "haar.cc", "mux.cc"} <= set(before)
+    build_dir = tmp_path / "native_build"
+    code = (
+        "import ctypes, sys\n"
+        "from lipsync_tpu_torch.utils import native\n"
+        "from lipsync_tpu_torch.preprocessing import haar, ingest, mux\n"
+        f"paths = native.build(build_dir={str(build_dir)!r})\n"
+        "symbols = {'ingest': 'ingest_read_video', 'haar': 'haar_detect',\n"
+        "           'mux': 'mux_write_video_ex'}\n"
+        "for name, path in paths.items():\n"
+        "    getattr(ctypes.CDLL(str(path)), symbols[name])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax') or m.startswith('lipsync_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print(sorted(p.name for p in paths.values()))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    built = sorted(p.name for p in build_dir.iterdir())
+    assert len(built) == 3 and all(n.endswith(".so") for n in built), built
+    assert _native_sources() == before
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     """Without device="cpu" an entry point asks for CUDA and raises here."""
     import numpy as np
