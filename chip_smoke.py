@@ -16,8 +16,9 @@ each printed as one JSON line:
    float64 DFT of the same chain (K1 no further than the twin + 2e-4 dB,
    and within the 2.5e-3 dB fp32 floor that the CPU tests pin);
 4. K2 (HF stem) against its twin at every main-path batch, (B, 32, 96, 96,
-   3) for B = 1 / 16 / 128 and the refinement's half windows (4, 16, 96,
-   96, 3), and at an odd, non-square (2, 4, 15, 10, 3) that leaves partial
+   3) for B = 1 / 16 / 128, the refinement's half windows (4, 16, 96, 96,
+   3) and the trainer's validation batch (6, 32, 96, 96, 3), and at an odd,
+   non-square (2, 4, 15, 10, 3) that leaves partial
    output tiles: fp32 atol 2e-5, bf16 within
    |d| <= 8e-3 |fp32| + 1e-5 of the fp32 result on the same input; kernel,
    twin and bound times in both dtypes;
@@ -51,7 +52,25 @@ each printed as one JSON line:
    preprocessing / inference split, host stage times and the device's idle
    share.
 
-Phases 5 and 6 record the shape and dtype of every input that their main
+7. the trainer at the same width (``training``): a corpus of 32 synthetic
+   clips (``utils/synthetic.py::write_corpus``); one train step (batch 2,
+   dropout 0, SGD with lr 1) on the card against the same step on this
+   machine's CPU replaying the card's ReLU masks and max-pool choices
+   (loss and metrics within 1e-5, BatchNorm statistics within 1e-5, each
+   gradient within ``PARITY_GRAD_TOL`` of its tensor's largest);
+   ``run_training`` for 3 epochs of 4 steps at batch 8 with host
+   augmentation (phase 1 moves the head and the encoders' BatchNorm
+   statistics but no encoder parameter, phase 2 the audio encoder and not
+   the visual one), a ``--resume`` that continues at the epoch and phase
+   of the metadata, a ``--device-cache`` epoch, ``run_finetune`` with one
+   frozen epoch, and clip S served from the finetuned ``best_model_f1``
+   through ``Predictor``. Validation and the served clip must launch K2,
+   no train step may. Step times (median of 5) at batch 8 and 32, fed from
+   the host and from the device cache, with clips/s, peak memory and the
+   idle share of a profiled window of 3 steps; once more at batch 32 with
+   PyTorch's TF32 defaults on, as a reading only.
+
+Phases 5-7 record the shape and dtype of every input that their main
 runs give each kernel's wrapper; each must be one that phase 3 or 4 held
 against the twin (the ``main_path_shapes`` line). Then a ``kernels`` line,
 the ``nvidia-smi`` line, and the result line
@@ -67,6 +86,7 @@ import contextlib
 import json
 import logging
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -76,6 +96,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 STRIDE = 8
+# The training phase's corpus: clips of 48 frames (3.2 s), and the
+# validation batch that run_training's 0.2 split makes of it.
+CORPUS_CLIPS = 32
+CORPUS_FRAMES = 48
+VAL_CLIPS = max(1, int(CORPUS_CLIPS * 0.2))
+# Card vs CPU, one train step on one activation pattern: each gradient
+# within this share of its tensor's largest.
+PARITY_GRAD_TOL = 1e-3
 
 # Published peaks (dense, no sparsity) by card: (bytes/s, fp32 SIMT FLOP/s,
 # TF32 tensor-core FLOP/s). K2's conv1 runs on the tensor cores, so its
@@ -480,6 +508,466 @@ def predictor_phase(eng16, eng32, cfg, profile_served, plain_kernels,
     return main_launches
 
 
+@contextlib.contextmanager
+def activation_pattern(tape: list, replay: bool, seen: dict):
+    """While open, records (``replay`` False) or replays (True) in call
+    order every ReLU mask and every max-pool choice of the port's model and
+    losses. A gradient is discontinuous where a ReLU input or two pooled
+    values lie within rounding of each other, and two devices' fp32 may
+    take different sides there; replaying one device's pattern on the
+    other compares the two gradients of the same smooth function. ``seen``
+    collects, in replay, how many recorded choices the replaying device
+    would have made otherwise, and the largest such input relative to its
+    tensor's scale (0 where none flipped)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lipsync_tpu_torch.models import audio_encoder, visual_encoder
+
+    relu, pool = F.relu, visual_encoder.max_pool_same
+    it = iter(tape)
+    seen.update(relu_flips=0, pool_flips=0, relu_flip_scale=0.0)
+
+    def relu_(x, inplace=False):
+        if not replay:
+            tape.append((x > 0).cpu())
+            return relu(x)
+        mask = next(it).to(x.device)
+        flipped = (x > 0) != mask
+        n = int(flipped.sum())
+        if n:
+            xd = x.detach()
+            seen["relu_flips"] += n
+            seen["relu_flip_scale"] = max(
+                seen["relu_flip_scale"],
+                float(xd[flipped].abs().max() / xd.std()))
+        return x * mask
+
+    def pool_(x, window, strides, padding):
+        fn = {2: F.max_pool2d, 3: F.max_pool3d}[len(window)]
+        out, idx = fn(x, tuple(window), tuple(strides),
+                      tuple(p[0] for p in padding), return_indices=True)
+        if not replay:
+            tape.append(idx.cpu())
+            return out
+        rec = next(it).to(x.device)
+        seen["pool_flips"] += int((rec != idx).sum())
+        return x.flatten(2).gather(2, rec.flatten(2)).view(rec.shape)
+
+    F.relu = relu_
+    visual_encoder.max_pool_same = audio_encoder.max_pool_same = pool_
+    try:
+        yield
+    finally:
+        F.relu = relu
+        visual_encoder.max_pool_same = audio_encoder.max_pool_same = pool
+
+
+class SGD1:
+    """``torch.optim.SGD(lr=1)`` with the port optimizer's interface: one
+    step moves each parameter by exactly its gradient."""
+
+    def __init__(self, model):
+        import torch
+
+        self.opt = torch.optim.SGD(model.parameters(), lr=1.0)
+        self.param_groups = self.opt.param_groups
+
+    def zero_grad(self):
+        self.opt.zero_grad()
+
+    def step(self):
+        self.opt.step()
+
+
+def training_parity(dev, cfg) -> dict:
+    """One train step at full width, batch 2, dropout 0, augmentation off,
+    a fixed shift and seeded weights, with SGD(lr=1): on the card, then on
+    the card machine's CPU replaying the card's activation pattern. Returns
+    the comparison; the caller checks it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.models import LipSyncModel, seeded_state_dict
+    from lipsync_tpu_torch.training import steps
+
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    weights = seeded_state_dict(LipSyncModel(cfg0), SEED)
+    rng = np.random.default_rng(SEED)
+    batch = {
+        "visual": rng.integers(0, 256, (2, cfg.video_frames, cfg.crop_size,
+                                        cfg.crop_size, 3), dtype=np.uint8),
+        "audio": rng.uniform(-80, 0, (2, cfg.mel_bins, cfg.audio_frames, 1)
+                             ).astype(np.float32),
+        "label": np.asarray([1.0, 0.0], np.float32),
+    }
+    tape = []
+
+    def run(device, replay):
+        model = LipSyncModel(cfg0)
+        model.load_state_dict(weights)
+        model.to(device)
+        state = steps.create_train_state(model, SGD1(model), SEED)
+        seen = {}
+        t0 = time.perf_counter()
+        with activation_pattern(tape, replay, seen):
+            metrics = steps.make_train_step(steps.LossConfig())(
+                state, {k: torch.from_numpy(v).to(device)
+                        for k, v in batch.items()}, shift=5)
+            metrics = {k: float(v) for k, v in metrics.items()}
+        seconds = time.perf_counter() - t0
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        stats = {n: b.detach().cpu() for n, b in model.named_buffers()
+                 if "running" in n}
+        return metrics, grads, stats, seen, seconds
+
+    card = run(dev, False)
+    cpu = run(torch.device("cpu"), True)
+    metric_rel = {k: abs(card[0][k] - cpu[0][k]) / max(abs(cpu[0][k]), 1e-6)
+                  for k in cpu[0]}
+    # A conv bias in front of a training-mode BatchNorm has a zero gradient
+    # in exact arithmetic: both devices hold rounding noise there.
+    zero = set()
+    for name, mod in LipSyncModel(cfg0).named_modules():
+        kids = list(mod.children()) if isinstance(mod, torch.nn.Sequential) \
+            else []
+        for i, (a, b) in enumerate(zip(kids, kids[1:])):
+            if (isinstance(a, torch.nn.modules.conv._ConvNd)
+                    and a.bias is not None
+                    and isinstance(b, torch.nn.modules.batchnorm._BatchNorm)):
+                zero.add(f"{name}.{i}.bias")
+    grad_rel = {n: float((card[1][n] - g).abs().max() / g.abs().max())
+                for n, g in cpu[1].items() if n not in zero}
+    stat_rel = {n: float((card[2][n] - s).abs().max()
+                         / max(1.0, float(s.abs().max())))
+                for n, s in cpu[2].items()}
+    worst = sorted(((v, n) for n, v in grad_rel.items()), reverse=True)[:5]
+    return {"metrics_card": card[0], "metrics_cpu": cpu[0],
+            "metric_rel": metric_rel, "grad_rel_worst5": worst,
+            "grad_rel_max": worst[0][0],
+            "zero_grads": sorted(zero),
+            "zero_grads_max": max(float(side[1][n].abs().max())
+                                  for side in (card, cpu) for n in zero),
+            "stat_rel_max": max(stat_rel.values()),
+            "replay": cpu[3], "pattern_entries": len(tape),
+            "seconds_card": card[4], "seconds_cpu": cpu[4]}
+
+
+def training_phase(dev, cfg, profile_steps, record) -> dict:
+    """The trainer on the card at the width of ``cfg``: a synthetic
+    corpus, the one-step card-vs-CPU parity, ``run_training`` (phases,
+    resume, device cache), ``run_finetune``, the trained checkpoint served
+    through ``Predictor``, and step times. Returns the kernels' launches
+    over the main run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.inference.predictor import (
+        Predictor,
+        PredictorConfig,
+    )
+    from lipsync_tpu_torch.models import LipSyncModel
+    from lipsync_tpu_torch.ops.augment import AugmentConfig
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.preprocessing import ingest
+    from lipsync_tpu_torch.preprocessing.face_detection import FakeDetector
+    from lipsync_tpu_torch.training import checkpoints as ckpt
+    from lipsync_tpu_torch.training import finetune as finetune_mod
+    from lipsync_tpu_torch.training import train as train_mod
+    from lipsync_tpu_torch.training.data import BatchLoader, LipSyncDataset
+    from lipsync_tpu_torch.training.device_cache import DeviceDatasetCache
+    from lipsync_tpu_torch.training.optimizers import PhaseOptimizer
+    from lipsync_tpu_torch.training.steps import (
+        LossConfig,
+        create_train_state,
+        make_train_step,
+    )
+    from lipsync_tpu_torch.utils import synthetic
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_training_"))
+    corpus = synthetic.write_corpus(work / "corpus", n_clips=CORPUS_CLIPS,
+                                    n_frames=CORPUS_FRAMES,
+                                    crop_size=cfg.crop_size, seed=SEED,
+                                    device=dev)
+    emit({"phase": "training_corpus", "clips": CORPUS_CLIPS,
+          "frames": CORPUS_FRAMES,
+          "seconds": time.perf_counter() - t_phase})
+
+    parity = training_parity(dev, cfg)
+    emit({"phase": "training_parity", **parity})
+    # Tolerances: loss and metrics 1e-5 relative; every BatchNorm buffer
+    # 1e-5 (relative where its values exceed 1); each gradient within
+    # PARITY_GRAD_TOL of its tensor's largest, on one activation pattern.
+    # A gradient that is zero in exact arithmetic (a conv bias in front of
+    # a training-mode BatchNorm) must stay rounding noise (< 1e-6).
+    for k, v in parity["metric_rel"].items():
+        check(v <= 1e-5, f"train-step {k}: card vs CPU {v}")
+    check(parity["stat_rel_max"] <= 1e-5,
+          f"BatchNorm statistics: card vs CPU {parity['stat_rel_max']}")
+    check(parity["grad_rel_max"] <= PARITY_GRAD_TOL,
+          f"gradients: card vs CPU {parity['grad_rel_worst5']}")
+    check(len(parity["zero_grads"]) == 4 and parity["zero_grads_max"] < 1e-6,
+          f"zero gradients: {parity['zero_grads']} {parity['zero_grads_max']}")
+
+    # ── run_training, run_finetune and the served checkpoint ──────────────
+    out = work / "weights"
+    geometry = ["--video-frames", str(cfg.video_frames),
+                "--crop-size", str(cfg.crop_size),
+                "--audio-frames", str(cfg.audio_frames)]
+    base = ["--preprocessed-dir", str(corpus), "--output-dir", str(out),
+            "--batch-size", "8", "--max-steps-per-epoch", "4",
+            "--phase2-start-epoch", "1", "--phase3-start-epoch", "2",
+            *geometry]
+    saved, step_k2, val_k2, losses = {}, [], [], []
+    real_save, real_validate = ckpt.save_checkpoint, train_mod.validate
+    real_make_step = train_mod.make_train_step
+
+    def save_spy(path, state_dict, metadata=None):
+        if Path(path).name == "latest" and Path(path).parent == out:
+            saved[metadata["epoch"]] = {k: v.detach().cpu().clone()
+                                        for k, v in state_dict.items()}
+        real_save(path, state_dict, metadata)
+
+    def validate_spy(*args, **kwargs):
+        before = k2.launches
+        result = real_validate(*args, **kwargs)
+        val_k2.append(k2.launches - before)
+        return result
+
+    def make_step_spy(*args, **kwargs):
+        step = real_make_step(*args, **kwargs)
+
+        def counted(state, batch, shift=None):
+            before = k2.launches
+            metrics = step(state, batch, shift)
+            losses.append(float(metrics["loss"]))
+            step_k2.append(k2.launches - before)
+            return metrics
+        return counted
+
+    ckpt.save_checkpoint = save_spy
+    train_mod.validate = finetune_mod.validate = validate_spy
+    train_mod.make_train_step = finetune_mod.make_train_step = make_step_spy
+    predict_launches = None
+    seconds = {}
+    try:
+        # The main run: every count set to 0, then the trainer, the resume,
+        # the device cache, the finetune and the served checkpoint.
+        k1.launches = k2.launches = 0
+        with record():
+            t0 = time.perf_counter()
+            history = train_mod.run_training(
+                train_mod.build_argparser().parse_args(
+                    base + ["--epochs", "3"]), device=dev)
+            seconds["run_training"] = time.perf_counter() - t0
+            meta = {name: ckpt.load_metadata(out / name)
+                    for name in ("latest", "best_model_loss",
+                                 "best_model_accuracy")}
+
+            t0 = time.perf_counter()
+            resumed = train_mod.run_training(
+                train_mod.build_argparser().parse_args(
+                    base + ["--epochs", "4", "--resume", str(out / "latest"),
+                            "--max-steps-per-epoch", "2"]), device=dev)
+            seconds["resume"] = time.perf_counter() - t0
+            meta_resumed = ckpt.load_metadata(out / "latest")
+
+            t0 = time.perf_counter()
+            cached = train_mod.run_training(
+                train_mod.build_argparser().parse_args(
+                    ["--preprocessed-dir", str(corpus), "--output-dir",
+                     str(work / "cached"), "--batch-size", "8",
+                     "--max-steps-per-epoch", "4", "--epochs", "1",
+                     "--phase3-start-epoch", "0", "--device-cache",
+                     *geometry]), device=dev)
+            seconds["device_cache"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            ft = work / "finetune"
+            ft_history = finetune_mod.run_finetune(
+                finetune_mod.build_argparser().parse_args(
+                    ["--preprocessed-dir", str(corpus),
+                     "--checkpoint", str(out / "latest"),
+                     "--output-dir", str(ft), "--batch-size", "8",
+                     "--max-steps-per-epoch", "4", "--epochs", "2",
+                     "--frozen-epochs", "1", *geometry]), device=dev)
+            seconds["run_finetune"] = time.perf_counter() - t0
+            ft_meta = {name: ckpt.load_metadata(ft / name)
+                       for name in ("best_frozen_loss", "best_model_f1")}
+
+            # Serve the finetuned checkpoint: clip S through Predictor.
+            rng = np.random.default_rng(SEED)
+            frames, boxes, pcm = synthetic.request(rng, 30, 2.0)
+            memory = InMemoryClips(ingest, synthetic.FPS)
+            path = memory.add("S_trained", frames, pcm)
+            pred = Predictor(model_path=ft / "best_model_f1",
+                             config=PredictorConfig(refine_margin=1.5),
+                             model_config=cfg,
+                             detector_backend=FakeDetector(
+                                 lambda i: [boxes[i]]), device=dev)
+            with memory.installed():
+                before = (k1.launches, k2.launches)
+                served = pred.predict(path)
+                sync()
+            predict_launches = (k1.launches - before[0],
+                                k2.launches - before[1])
+        main_launches = {"log_mel": k1.launches, "hf_stem": k2.launches}
+    finally:
+        ckpt.save_checkpoint, train_mod.validate = real_save, real_validate
+        finetune_mod.validate = real_validate
+        train_mod.make_train_step = finetune_mod.make_train_step = \
+            real_make_step
+
+    torch.manual_seed(int(train_mod.build_argparser().parse_args(
+        []).seed))  # run_training's initial weights
+    init = {k: v.clone() for k, v in LipSyncModel(cfg).state_dict().items()}
+
+    def moved(a, b, prefix, stats=False):
+        keys = [k for k in a if k.startswith(prefix) and "num_batches" not in k
+                and ("running_" in k) == stats]
+        return sum(not torch.equal(a[k], b[k]) for k in keys), len(keys)
+
+    phases = {
+        "epoch0_visual_params": moved(init, saved[0], "visual_encoder."),
+        "epoch0_audio_params": moved(init, saved[0], "audio_encoder."),
+        "epoch0_visual_stats": moved(init, saved[0], "visual_encoder.", True),
+        "epoch0_audio_stats": moved(init, saved[0], "audio_encoder.", True),
+        "epoch0_head_params": moved(init, saved[0], "classifier."),
+        "epoch1_audio_params": moved(saved[0], saved[1], "audio_encoder."),
+        "epoch1_visual_params": moved(saved[0], saved[1], "visual_encoder."),
+        "epoch2_visual_params": moved(saved[1], saved[2], "visual_encoder."),
+    }
+    emit({"phase": "training_run", "history": history,
+          "resumed": resumed, "device_cache": cached,
+          "finetune": ft_history, "seconds": seconds,
+          "meta_latest": meta["latest"], "meta_resumed": meta_resumed,
+          "finetune_meta_keys": {k: sorted(v) for k, v in ft_meta.items()},
+          "moved_of": phases, "losses": losses,
+          "k2_per_train_step": sorted(set(step_k2)),
+          "k2_per_validation": val_k2, "main_launches": main_launches,
+          "served": {"verdict": served["verdict"],
+                     "confidence": served["confidence"],
+                     "launches": {"log_mel": predict_launches[0],
+                                  "hf_stem": predict_launches[1]}}})
+    train_keys = {"epoch", "phase", "train_loss", "train_accuracy",
+                  "val_loss", "val_accuracy", "best_val_loss",
+                  "best_val_accuracy", "video_frames", "audio_frames",
+                  "crop_size"}
+    for name, m in meta.items():
+        check(set(m) == train_keys, f"{name} metadata keys: {sorted(m)}")
+    check(meta["latest"]["epoch"] == 2 and meta["latest"]["phase"] == 3,
+          f"latest after 3 epochs: {meta['latest']}")
+    check(phases["epoch0_visual_params"][0] == 0
+          and phases["epoch0_audio_params"][0] == 0,
+          f"phase 1 moved an encoder parameter: {phases}")
+    check(phases["epoch0_visual_stats"][0] > 0
+          and phases["epoch0_audio_stats"][0] > 0
+          and phases["epoch0_head_params"][0] > 0,
+          f"phase 1 left the head or the encoders' statistics: {phases}")
+    check(phases["epoch1_audio_params"][0] > 0
+          and phases["epoch1_visual_params"][0] == 0,
+          f"phase 2 moved visual or left audio: {phases}")
+    check(phases["epoch2_visual_params"][0] > 0,
+          f"phase 3 left the visual encoder: {phases}")
+    check(all(np.isfinite(losses)) and len(losses) > 0,
+          f"non-finite training loss: {losses}")
+    check(meta_resumed["epoch"] == 3 and meta_resumed["phase"] == 3
+          and resumed["epoch"] == 3,
+          f"resume did not follow the metadata: {meta_resumed}")
+    check(np.isfinite(cached["val_loss"]), f"device-cache run: {cached}")
+    check(all("f1_threshold" in m for m in ft_meta.values()),
+          f"finetune checkpoints: {ft_meta}")
+    check(step_k2 and set(step_k2) == {0}, "a train step launched K2")
+    check(val_k2 and min(val_k2) >= 1, f"validation without K2: {val_k2}")
+    check(predict_launches[0] >= 1 and predict_launches[1] >= 1
+          and served["verdict"] and np.isfinite(served["confidence"]),
+          f"served checkpoint: {served['verdict']} {predict_launches}")
+
+    # ── step times at batch 8 and 32, host-fed and from the device cache ──
+    torch.manual_seed(SEED)
+    model = LipSyncModel(cfg).to(dev)
+    state = create_train_state(
+        model, PhaseOptimizer(model.named_parameters(), 3, 1e-4, 1e-5),
+        SEED)
+    host_step = make_train_step(LossConfig())
+    cache_step = make_train_step(LossConfig(), augment_cfg=AugmentConfig())
+    host_ds = LipSyncDataset(preprocessed_dir=corpus,
+                             video_frames=cfg.video_frames,
+                             audio_frames=cfg.audio_frames)
+    cache = DeviceDatasetCache(LipSyncDataset(
+        preprocessed_dir=corpus, video_frames=cfg.video_frames,
+        audio_frames=cfg.audio_frames, uint8_visual=True), device=dev)
+
+    def time_steps(step, next_batch, b):
+        """Median of 5 warm steps, peak memory and a profiled window of 3
+        steps."""
+        def one():
+            return float(step(state, next_batch())["loss"])
+
+        for _ in range(2):
+            one()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            one()
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        return {"step_ms_median5": ms, "step_ms_all": [t * 1e3 for t in times],
+                "clips_per_s": b / ms * 1e3,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9,
+                "profile_3_steps": profile_steps(
+                    lambda: [one() for _ in range(3)])}
+
+    for b in (8, 32):
+        host_batch = next(iter(BatchLoader(host_ds, batch_size=b, seed=SEED,
+                                           train_mode_override=True)))
+        rng = np.random.RandomState(SEED)
+
+        def from_cache():
+            return next(iter(cache.batches(range(CORPUS_CLIPS), b, rng=rng,
+                                           train_mode=True)))
+
+        feeds = {
+            "host_fed": (host_step,
+                         lambda: train_mod.to_device(host_batch, dev)),
+            "device_cache": (cache_step, from_cache),
+        }
+        for feed, (step, next_batch) in feeds.items():
+            emit({"phase": "training_step_time", "feed": feed, "batch": b,
+                  "tf32": False, **time_steps(step, next_batch, b)})
+    # The same step with PyTorch's default for convolutions (TF32 on) and
+    # TF32 matmuls: a reading for later work, not a path that is checked.
+    saved_tf32 = (torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        emit({"phase": "training_step_time", "feed": "device_cache",
+              "batch": 32, "tf32": True,
+              **time_steps(cache_step, from_cache, 32)})
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved_tf32
+    del state, model, cache
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "training_seconds", "seconds": phase_s})
+    return main_launches
+
+
 def main() -> None:
     import torch
 
@@ -702,9 +1190,11 @@ def main() -> None:
             del v
         return row
 
-    # An odd shape with partial output tiles, and the refinement's three
-    # half windows of clip S (phase 6) in their bucket of 4.
-    for shape in ((2, 4, 15, 10, 3), (4, 16, 96, 96, 3)):
+    # An odd shape with partial output tiles, the refinement's three half
+    # windows of clip S (phase 6) in their bucket of 4, and the training
+    # phase's validation batch (phase 7).
+    for shape in ((2, 4, 15, 10, 3), (4, 16, 96, 96, 3),
+                  (VAL_CLIPS, 32, 96, 96, 3)):
         video = torch.rand(*shape, generator=gen).to(dev)
         err32, _, used16 = k2_errors(video)
         emit({"phase": "k2_hf_stem", "shape": list(shape),
@@ -909,6 +1399,11 @@ def main() -> None:
         eng16, eng32, cfg, profile_served, plain_kernels,
         lambda: kernel_inputs(seen))
 
+    # ── 7. the trainer ────────────────────────────────────────────────
+    torch.cuda.empty_cache()
+    training_launches = training_phase(
+        dev, cfg, profile_served, lambda: kernel_inputs(seen))
+
     # Every input shape that the main runs gave a kernel was checked above.
     unchecked = {name: sorted(shapes - checked[name])
                  for name, shapes in seen.items()}
@@ -918,7 +1413,7 @@ def main() -> None:
     check(not any(unchecked.values()),
           f"main-path kernel inputs not held against the twin: {unchecked}")
 
-    # ── 7. kernels ────────────────────────────────────────────────────
+    # ── 8. kernels ────────────────────────────────────────────────────
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
@@ -928,6 +1423,7 @@ def main() -> None:
          "replaces": "lipsync_tpu/ops/pallas/mel_kernel.py:65",
          "launches": main_launches["log_mel"],
          "launches_predictor": predictor_launches["log_mel"],
+         "launches_training": training_launches["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
@@ -937,6 +1433,7 @@ def main() -> None:
          "replaces": "lipsync_tpu/ops/pallas/hf_stem.py:174",
          "launches": main_launches["hf_stem"],
          "launches_predictor": predictor_launches["hf_stem"],
+         "launches_training": training_launches["hf_stem"],
          "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
          "plain_ms": k2m["plain_ms"], "bound_ms": k2m["bound_ms"],
          "bound_by": k2m["bound_by"], "bound_basis": k2m["bound_basis"],

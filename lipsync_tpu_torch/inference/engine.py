@@ -23,6 +23,7 @@ from lipsync_tpu_torch.models.bridge import (
     variables_to_state_dict,
 )
 from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel, ModelConfig
+from lipsync_tpu_torch.training import checkpoints
 from lipsync_tpu_torch.utils.device import DeviceLike, get_device
 
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
@@ -248,9 +249,12 @@ def load_engine(
     device: DeviceLike = None,
 ) -> ScoringEngine:
     """Build an engine from a reference/port ``.pth`` state dict (raw or in
-    a ``model_state_dict``/``state_dict`` wrapper), or from a ``.npz`` that
-    holds a JAX-layout variables tree flattened with ``/``-joined keys
-    (``params/visual_encoder/stem/conv/kernel``), through the bridge."""
+    a ``model_state_dict``/``state_dict`` wrapper), from a port checkpoint
+    directory (``model.pth`` + ``metadata.json``, as the port's trainer
+    writes it), or from a ``.npz`` that holds a JAX-layout variables tree
+    flattened with ``/``-joined keys (``params/visual_encoder/stem/conv/
+    kernel``), through the bridge. The JAX package's orbax directories
+    need JAX and raise."""
     if model_path is None:
         raise FileNotFoundError(
             "No model path given and no committed checkpoint to fall back to"
@@ -259,10 +263,12 @@ def load_engine(
     if not model_path.exists():
         raise FileNotFoundError(f"Model weights not found at {model_path}")
     if model_path.is_dir():
-        raise NotImplementedError(
-            "orbax checkpoint directories need JAX; convert them to .npz"
-        )
-    if model_path.suffix == ".npz":
+        if not checkpoints.is_checkpoint_dir(model_path):
+            raise NotImplementedError(
+                "orbax checkpoint directories need JAX; convert them to .npz"
+            )
+        variables = checkpoints.load_checkpoint(model_path)
+    elif model_path.suffix == ".npz":
         with np.load(model_path) as z:
             variables = _unflatten({k: z[k] for k in z.files})
     else:

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from lipsync_tpu_torch.models.layers import compute_in
+from lipsync_tpu_torch.models.layers import BatchNorm, compute_in
 from lipsync_tpu_torch.ops.kernels.hf_stem import hf_stem
 
 
@@ -43,7 +43,7 @@ def _conv_bn_relu_stack(dims, stride) -> nn.Sequential:
     for c_in, c_out in zip(dims[:-1], dims[1:]):
         layers += [
             nn.Conv3d(c_in, c_out, 3, stride=stride, padding=1, bias=True),
-            nn.BatchNorm3d(c_out, eps=1e-5, momentum=0.1),
+            BatchNorm(c_out),
             nn.ReLU(),
         ]
     return nn.Sequential(*layers)

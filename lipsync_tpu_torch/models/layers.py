@@ -5,21 +5,82 @@ modules that carry the reference checkpoint's parameter names
 (``nn.Sequential`` indices: ``<block>.0`` conv, ``<block>.1`` BatchNorm;
 packed ``in_proj_weight``/``in_proj_bias`` attention). Convolution blocks
 work on channels-first tensors (torch's NC[D]HW); the encoders permute from
-the package's channels-last layouts at their boundary. BatchNorm eps is
-1e-5, momentum 0.1 (torch's convention, flax's 0.9).
+the package's channels-last layouts at their boundary. Every BatchNorm is
+:class:`BatchNorm`: eps 1e-5, momentum 0.1 (torch's convention, flax's
+0.9), and flax's running-variance rule.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Sequence, Tuple
+from typing import Iterator, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
-_BN = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over dim 1 of an ``(N, C, ...)`` tensor of any rank that
+    normalises as ``nn.BatchNorm{1,2,3}d`` does and keeps their buffer
+    names, but updates ``running_var`` with the *biased* batch variance, as
+    flax's ``nn.BatchNorm`` does (torch's own modules use the unbiased one,
+    so their statistics drift from the JAX package's by n/(n-1) on the
+    update term). ``momentum=None`` is torch's cumulative average.
+
+    The update is torch's, corrected in place: with ``old`` the variance
+    before the step, ``m`` the step's factor and ``n`` the values per
+    channel, torch writes ``(1-m) old + m var n/(n-1)``, and
+    ``((n-1) new + (1-m) old) / n`` turns that into ``(1-m) old + m var``
+    without another pass over the activations. While ``update_stats`` is
+    False a training-mode forward normalises with the batch statistics and
+    leaves every buffer as it was (see :func:`frozen_batch_stats`)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum=0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.update_stats = True
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() < 2:
+            raise ValueError(f"expected (N, C, ...), got {tuple(x.shape)}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if not self.update_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        old = self.running_var.clone()
+        out = super().forward(x)
+        with torch.no_grad():
+            m = (self.momentum if self.momentum is not None
+                 else 1.0 / float(self.num_batches_tracked))
+            n = x.numel() // x.shape[1]
+            # A new tensor: autograd holds the one that the op updated.
+            self.running_var = torch.add(self.running_var * ((n - 1) / n),
+                                         old, alpha=(1 - m) / n)
+        return out
+
+
+def batch_norms(model: nn.Module) -> Iterator[BatchNorm]:
+    return (m for m in model.modules() if isinstance(m, BatchNorm))
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(model: nn.Module):
+    """While open, training-mode forwards of ``model`` normalise with batch
+    statistics and update no BatchNorm buffer."""
+    bns = list(batch_norms(model))
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
 
 
 def compute_in(x: torch.Tensor):
@@ -53,7 +114,7 @@ class ConvBNAct(nn.Sequential):
         layers = [
             _CONV[nd](in_channels, out_channels, tuple(kernel_size),
                       stride=tuple(stride), padding=tuple(padding), bias=bias),
-            _BN[nd](out_channels, eps=1e-5, momentum=0.1),
+            BatchNorm(out_channels),
         ]
         if act:
             layers.append(nn.ReLU())

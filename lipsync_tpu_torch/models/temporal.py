@@ -12,7 +12,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from lipsync_tpu_torch.models.layers import TransformerEncoderLayer
+from lipsync_tpu_torch.models.layers import (
+    BatchNorm,
+    TransformerEncoderLayer,
+)
 
 
 class _Encoder(nn.Module):
@@ -40,7 +43,7 @@ class TemporalTransformer(nn.Module):
                 self.add_module(f"branch_k{k}", nn.Sequential(
                     nn.Conv1d(embed_dim, embed_dim, k, padding=k // 2,
                               bias=False),
-                    nn.BatchNorm1d(embed_dim, eps=1e-5, momentum=0.1),
+                    BatchNorm(embed_dim),
                     nn.GELU(),
                 ))
             self.pre_scale_proj = nn.Linear(3 * embed_dim, embed_dim)

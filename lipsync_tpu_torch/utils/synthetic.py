@@ -5,10 +5,13 @@ moving, resizing mouth box over shifted noise, and a 220 Hz tone with a
 :func:`track_windows` runs a request through the device half of the path
 (crops, log-mel, alignment) and stacks its sliding windows as the model
 takes them, for measurements that feed the model directly.
+:func:`write_corpus` writes requests as a preprocessed training corpus.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -59,6 +62,49 @@ def requests(seed: int) -> Dict[str, Request]:
     return {"R1": request(rng, 32, 2.2),
             "R2": request(rng, 150, 150 / FPS),
             "R3": request(rng, 600, 600 / FPS)}
+
+
+def write_corpus(
+    out_dir: Path,
+    n_clips: int = 32,
+    n_frames: int = 48,
+    crop_size: int = 96,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> Path:
+    """A preprocessed training corpus of ``n_clips`` requests of
+    ``n_frames`` frames, as ``training/data.py`` reads it: per clip the
+    mouth crops ``(n_frames, crop, crop, 3)`` uint8 and the log-mel
+    ``(80, T_a)`` dB as npy files, and one ``full_sequence`` record per
+    clip in ``manifest.jsonl``. Even clips are labelled real (1); odd clips
+    are fake (0), their audio rolled by half the clip against the video.
+    Crops and the log-mel run on ``device``."""
+    dev = get_device(device)
+    rng = np.random.default_rng(seed)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    records = []
+    for i in range(n_clips):
+        frames, boxes, y = request(rng, n_frames, n_frames / FPS)
+        label = int(i % 2 == 0)
+        if not label:
+            y = np.roll(y, len(y) // 2)
+        crops = crop_track_on_device(frames, boxes, 0, crop_size, device=dev)
+        visual = np.clip(crops * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        key = f"clip_{i:04d}"
+        np.save(out_dir / f"{key}_visual.npy", visual)
+        np.save(out_dir / f"{key}_audio.npy",
+                preprocess_audio_pcm(y, device=dev))
+        records.append({
+            "key": key, "label": label, "source_path": f"synthetic/{key}",
+            "visual_relpath": f"{key}_visual.npy",
+            "audio_relpath": f"{key}_audio.npy",
+            "precompute_mode": "full_sequence",
+            "target_fps": FPS, "mel_hz": 100.0,
+        })
+    (out_dir / "manifest.jsonl").write_text(
+        "\n".join(json.dumps(r) for r in records) + "\n")
+    return out_dir
 
 
 def track_windows(

@@ -111,3 +111,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         preprocess_audio_pcm(np.ones(16000, np.float32))
+
+    from types import SimpleNamespace
+
+    from lipsync_tpu_torch.training.device_cache import DeviceDatasetCache
+    from lipsync_tpu_torch.training.finetune import run_finetune
+    from lipsync_tpu_torch.training.train import run_training
+
+    for entry in (run_training, run_finetune):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(SimpleNamespace())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceDatasetCache(SimpleNamespace())
