@@ -19,9 +19,16 @@ each printed as one JSON line:
    3) for B = 1 / 16 / 128, the refinement's half windows (4, 16, 96, 96,
    3) and the trainer's validation batch (6, 32, 96, 96, 3), and at an odd,
    non-square (2, 4, 15, 10, 3) that leaves partial
-   output tiles: fp32 atol 2e-5, bf16 within
+   output tiles, and the serving phase's buckets (2 / 4 / 8, 32, 96, 96,
+   3): fp32 atol 2e-5, bf16 within
    |d| <= 8e-3 |fp32| + 1e-5 of the fp32 result on the same input; kernel,
    twin and bound times in both dtypes;
+4b. K3 (int8 convolution) against its twin at every int8 encoder
+   convolution of ``ModelConfig()`` (found by one int8 forward) at B = 1,
+   16 and 128 windows and at three odd shapes with partial tiles: int32
+   outputs equal; kernel time and bound (int8 tensor-core rate) at every B,
+   and at B = 16 the twin, im2col + ``torch._int_mm`` and the bf16 cuDNN
+   convolution of the same shape;
 5. three requests at the full width of ``ModelConfig()``, each crop ->
    log-mel (K1) -> align -> engine (K2 inside): R1 32 frames of 360x640 +
    2.2 s of PCM through ``score_probs``; R2 150 frames (10 s at 15 fps, 15
@@ -70,9 +77,39 @@ each printed as one JSON line:
    idle share of a profiled window of 3 steps; once more at batch 32 with
    PyTorch's TF32 defaults on, as a reading only.
 
-Phases 5-7 record the shape and dtype of every input that their main
-runs give each kernel's wrapper; each must be one that phase 3 or 4 held
-against the twin (the ``main_path_shapes`` line). Then a ``kernels`` line,
+8. the HTTP service (``serving``): the calibrated weights saved as a
+   ``.pth``, ``Settings`` pointing at it, the port's ``Predictor`` from
+   ``settings.to_predictor_config()`` with a detector that knows the
+   clips' boxes (``ClipBoxes``), and ``Server(AppState(...),
+   load_model=False)``, whose start-up wraps the engine in
+   ``CoalescingEngine``, runs the warmup and starts the embedded worker.
+   Over stdlib ``urllib``: ``/healthz``; ``POST /api/lip-sync`` of S and L,
+   each body equal to ``LipSyncResponse.from_result(predict(clip))`` (every
+   float within 1e-6), K1 and K2 launched by each; ``POST /jobs`` of L
+   polled to COMPLETED (minimal and debug payloads); the metrics route; 4
+   clients posting 8 requests of S (all 200, same verdict, |dconfidence|
+   <= 1e-3, fewer coalesced batches than scoring calls). Then p50 / p95
+   latency and requests/s at concurrency 1 and 4, and the direct
+   ``predict`` of the same predictor. The clips reach the server as upload
+   tokens that ``INGEST`` maps back to the clip in memory;
+9. the single-card options (``options``): ``Settings(option)`` for the
+   default, ``shared_visual_encoding``, ``fold_hf_stem`` and
+   ``quantized_int8``, each as a bf16 ``Predictor`` and an fp32 engine
+   from ``load_engine`` on the calibrated weights, on S, L and (fp32) R1-R3.
+   K1 in every run; K2 in every run but the fold's and none under the fold;
+   K3 only in the int8 engine's runs, 24 launches per forward. Shared: L's
+   window probabilities finite, a one-window track within 1e-5 of the
+   per-window engine in fp32. Fold: fp32 |dprob| <= 1e-3 against the
+   unfolded engine on seeded weights (the JAX package's bound), a reading
+   on the calibrated ones. Int8: fp32 logits within 1e-4 of the same run
+   with K3's twin in its place; fp32 |dprob| <= 5e-3 against the fp32
+   default on seeded weights, a reading on the calibrated ones. Latency of
+   every option's bf16 ``predict`` of S and L, median of 5.
+
+Phases 5-9 record the shape and dtype of every input that their main
+runs give each kernel's wrapper (for K3 also the weight shape, stride and
+padding); each must be one that phase 3, 4 or 4b held against the twin
+(the ``main_path_shapes`` line). Then a ``kernels`` line,
 the ``nvidia-smi`` line, and the result line
 ``{"ok": true, "device": {...}}``. Every fp32 comparison runs with TF32 off
 (``torch.backends.cudnn.allow_tf32`` defaults to True). Any failure raises
@@ -106,19 +143,25 @@ VAL_CLIPS = max(1, int(CORPUS_CLIPS * 0.2))
 PARITY_GRAD_TOL = 1e-3
 
 # Published peaks (dense, no sparsity) by card: (bytes/s, fp32 SIMT FLOP/s,
-# TF32 tensor-core FLOP/s). K2's conv1 runs on the tensor cores, so its
-# bound counts operations at the TF32 rate (H100 SXM: 495 TFLOP/s; the other
-# cards: half their dense bf16 rate). K1 stays on fp32 SIMT FMA, the only
-# type that holds its dB at quiet bands, so its bound keeps the SIMT rate;
-# it counts the operations that the function needs (an rFFT, the mel bands'
-# supports), not those of the kernel's direct DFT.
+# TF32 tensor-core FLOP/s, int8 tensor-core OP/s). K2's conv1 runs on the
+# tensor cores, so its bound counts operations at the TF32 rate (H100 SXM:
+# 495 TFLOP/s; the other cards: half their dense bf16 rate). K1 stays on
+# fp32 SIMT FMA, the only type that holds its dB at quiet bands, so its
+# bound keeps the SIMT rate; it counts the operations that the function
+# needs (an rFFT, the mel bands' supports), not those of the kernel's direct
+# DFT. K3 runs int8 x int8 -> int32 on the tensor cores (H100 SXM: 1,979
+# TOP/s; the other cards: twice their dense bf16 rate).
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12, 378e12),
-    "H100 NVL": (3.9e12, 60e12, 417.5e12),
-    "H200": (4.8e12, 67e12, 494.5e12),
-    "H100": (3.35e12, 67e12, 495e12),  # SXM
+    "H100 PCIe": (2.0e12, 51e12, 378e12, 1513e12),
+    "H100 NVL": (3.9e12, 60e12, 417.5e12, 1670e12),
+    "H200": (4.8e12, 67e12, 494.5e12, 1979e12),
+    "H100": (3.35e12, 67e12, 495e12, 1979e12),  # SXM
 }
-SIMT, TENSOR = "fp32 SIMT", "TF32 tensor cores"
+SIMT, TENSOR, INT8 = "fp32 SIMT", "TF32 tensor cores", "int8 tensor cores"
+# K2 inputs of the served paths beyond phase 4's batches: the server's
+# warmup (a two-window track) and concurrent requests coalesced into
+# buckets of 2, 4 and 8 one-window requests.
+K2_EXTRA_BATCHES = (2, 4, 8)
 
 
 def emit(obj) -> None:
@@ -157,22 +200,34 @@ INGEST = "in_memory"
 
 class InMemoryClips:
     """Readers with the signatures of ``preprocessing/ingest.py`` that
-    serve clips held in memory by path; any other path raises
+    serve clips held in memory by path, or by the bytes of a file that
+    holds a clip's upload token (the HTTP service writes each upload to a
+    temporary file and predicts that path); any other path raises
     ``FileNotFoundError``."""
 
     def __init__(self, ingest_mod, fps: float):
         self.ingest = ingest_mod
         self.fps = fps
         self.clips = {}
+        self.uploads = {}
 
     def add(self, name: str, frames, pcm) -> str:
         path = f"/in-memory/{name}.avi"
         self.clips[path] = (frames, pcm)
+        self.uploads[self.upload(name)] = path
         return path
 
+    @staticmethod
+    def upload(name: str) -> bytes:
+        """The bytes a client uploads for clip ``name``."""
+        return f"chip-smoke in-memory clip {name}".encode()
+
     def _get(self, path):
+        key = str(path)
+        if key not in self.clips and Path(key).is_file():
+            key = self.uploads.get(Path(key).read_bytes(), key)
         try:
-            return self.clips[str(path)]
+            return self.clips[key]
         except KeyError:
             raise FileNotFoundError(str(path)) from None
 
@@ -213,26 +268,66 @@ def kernel_inputs(seen: dict):
     """While open, adds the (shape, dtype) of every input that a kernel's
     wrapper gets to ``seen[name]``; the wrapper runs as it would."""
     from lipsync_tpu_torch.models import artifact as artifact_mod
+    from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import mel as k1
 
-    saved = (k1.log_mel_db, artifact_mod.hf_stem)
+    saved = (k1.log_mel_db, artifact_mod.hf_stem, layers_mod.int8_conv_int32)
 
-    def logged(name, fn):
+    def logged(name, fn, key=lambda x, *args: shape_key(x)):
         def call(x, *args, **kwargs):
-            seen.setdefault(name, set()).add(shape_key(x))
+            seen.setdefault(name, set()).add(key(x, *args))
             return fn(x, *args, **kwargs)
         return call
 
     k1.log_mel_db = logged("log_mel", saved[0])
     artifact_mod.hf_stem = logged("hf_stem", saved[1])
+    layers_mod.int8_conv_int32 = logged("int8_conv", saved[2], conv_key)
     try:
         yield
     finally:
-        k1.log_mel_db, artifact_mod.hf_stem = saved
+        (k1.log_mel_db, artifact_mod.hf_stem,
+         layers_mod.int8_conv_int32) = saved
 
 
 def shape_key(x) -> tuple:
     return tuple(x.shape), str(x.dtype).removeprefix("torch.")
+
+
+def conv_key(x, w, stride, padding) -> tuple:
+    """K3's input: activation shape, weight shape, stride, padding."""
+    return (tuple(x.shape), tuple(w.shape), tuple(int(v) for v in stride),
+            tuple(int(v) for v in padding))
+
+
+class ClipBoxes:
+    """A detector for many clips at once: each known frame's mouth box,
+    looked up by a fingerprint of the frame's pixels; other frames have
+    none. It keeps no per-video state (``FakeDetector`` counts frames), so
+    concurrent requests can share it."""
+
+    name = "fake"
+
+    def __init__(self):
+        self.boxes = {}
+
+    @staticmethod
+    def key(frame) -> bytes:
+        return frame[::29, ::31].tobytes()
+
+    def add(self, frames, boxes) -> None:
+        for f, b in zip(frames, boxes):
+            self.boxes[self.key(f)] = tuple(b)
+        check(len({self.key(f) for f in frames}) == len(frames),
+              "clip frames share a fingerprint")
+
+    def reset(self) -> None:
+        pass
+
+    def detect(self, frame):
+        from lipsync_tpu_torch.preprocessing.face_detection import Detection
+
+        box = self.boxes.get(self.key(frame))
+        return [] if box is None else [Detection(bbox=box, detector="fake")]
 
 
 class StageClock:
@@ -968,6 +1063,677 @@ def training_phase(dev, cfg, profile_steps, record) -> dict:
     return main_launches
 
 
+def json_diff(a, b, path="$"):
+    """(largest difference between two JSON values' floats, the paths
+    where anything else differs)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return 0.0, [f"{path}: keys {sorted(set(a) ^ set(b))}"]
+        parts = [json_diff(a[k], b[k], f"{path}.{k}") for k in a]
+    elif isinstance(a, list) and isinstance(b, list):
+        if len(a) != len(b):
+            return 0.0, [f"{path}: lengths {len(a)} != {len(b)}"]
+        parts = [json_diff(x, y, f"{path}[{i}]")
+                 for i, (x, y) in enumerate(zip(a, b))]
+    elif type(a) is float and type(b) is float:
+        return abs(a - b), []
+    else:
+        return 0.0, [] if (type(a), a) == (type(b), b) else [
+            f"{path}: {a!r} != {b!r}"]
+    return (max((d for d, _ in parts), default=0.0),
+            [m for _, ms in parts for m in ms])
+
+
+class Client:
+    """The HTTP calls of the serving phase, on stdlib ``urllib``."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def _send(self, req):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def get(self, route):
+        import urllib.request
+
+        return self._send(urllib.request.Request(self.base + route))
+
+    def post_json(self, route, payload):
+        import urllib.request
+
+        return self._send(urllib.request.Request(
+            self.base + route, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"}))
+
+    def post_upload(self, route, data: bytes):
+        import urllib.request
+
+        boundary = "chip-smoke-boundary"
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                'name="video_file"; filename="clip.mp4"\r\n'
+                "Content-Type: video/mp4\r\n\r\n").encode() + data + (
+            f"\r\n--{boundary}--\r\n").encode()
+        return self._send(urllib.request.Request(
+            self.base + route, data=body, headers={
+                "Content-Type": f"multipart/form-data; boundary={boundary}"}))
+
+
+def clip_set(ingest_mod, synthetic):
+    """Clips S and L (the predictor phase's, from the same seed) in memory,
+    with a detector that knows their boxes."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    clips = {"S": synthetic.request(rng, 30, 2.0),
+             "L": synthetic.request(rng, 150, 150 / synthetic.FPS)}
+    memory = InMemoryClips(ingest_mod, synthetic.FPS)
+    boxes = ClipBoxes()
+    paths = {}
+    for name, (frames, bx, pcm) in clips.items():
+        paths[name] = memory.add(name, frames, pcm)
+        boxes.add(frames, bx)
+    return memory, boxes, paths
+
+
+def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
+    """K3 against its twin at every int8 encoder convolution of ``cfg``
+    (found by one int8 forward of one window) at B = 1, 16 and 128 windows,
+    and at three odd shapes with partial tiles: int32 outputs must be equal.
+    At B = 16 the kernel, its twin, im2col + ``torch._int_mm`` (cuBLASLt)
+    and the bf16 cuDNN convolution of the same shape are timed; the kernel
+    at every B, beside its bound. Returns the rows by (conv index, B)."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from lipsync_tpu_torch.models import LipSyncModel
+    from lipsync_tpu_torch.models import layers as layers_mod
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+
+    geoms, calls = [], [0]
+    real = layers_mod.int8_conv_int32
+
+    def discover(x, w, stride, padding):
+        calls[0] += 1
+        key = conv_key(x, w, stride, padding)
+        if key not in geoms:
+            geoms.append(key)
+        return real(x, w, stride, padding)
+
+    model = LipSyncModel(dataclasses.replace(cfg, conv_lowering="int8"))
+    model.load_state_dict(weights)
+    model.to(dev).eval()
+    layers_mod.int8_conv_int32 = discover
+    try:
+        with torch.inference_mode():
+            model(torch.rand(1, cfg.video_frames, cfg.crop_size,
+                             cfg.crop_size, 3, device=dev),
+                  torch.rand(1, cfg.mel_bins, cfg.audio_frames, 1,
+                             device=dev) * -80)
+    finally:
+        layers_mod.int8_conv_int32 = real
+    del model
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand_int8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int16).to(torch.int8)
+
+    def im2col_int_mm(x, w, stride, padding):
+        """The same convolution as one im2col copy and one cuBLASLt int8
+        GEMM (K zero-padded to a multiple of 8)."""
+        if x.dim() == 4:  # one frame of a 3-d convolution
+            return im2col_int_mm(x.unsqueeze(1), w.unsqueeze(1),
+                                 (1, *stride), (0, *padding))[:, 0]
+        pd, ph, pw = padding
+        cout, kd, kh, kw, c = w.shape
+        cols = F.pad(x, (0, 0, pw, pw, ph, ph, pd, pd)).unfold(
+            1, kd, stride[0]).unfold(2, kh, stride[1]).unfold(3, kw,
+                                                              stride[2])
+        k = kd * kh * kw * c
+        kp = -(-k // 8) * 8
+        a = F.pad(cols.permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(-1, k),
+                  (0, kp - k))
+        bm = F.pad(w.reshape(cout, k), (0, kp - k))
+        return torch._int_mm(a, bm.t()).view(*cols.shape[:4], cout)
+
+    odd = [((3, 5, 13, 11, 32), (24, 3, 3, 3, 32), (1, 2, 2), (1, 1, 1)),
+           ((2, 3, 9, 10, 3), (16, 2, 5, 3, 3), (1, 2, 1), (0, 2, 1)),
+           ((3, 11, 9, 1), (8, 7, 7, 1), (2, 2), (3, 3))]
+    cases = [(i, b, (b, *g[0][1:]), *g[1:]) for b in (1, 16, 128)
+             for i, g in enumerate(geoms)]
+    cases += [(f"odd{i}", 0, *g) for i, g in enumerate(odd)]
+    rows = {}
+    for name, b, x_shape, w_shape, stride, padding in cases:
+        x, w = rand_int8(x_shape), rand_int8(w_shape)
+        got = k3.int8_conv_int32(x, w, stride, padding)
+        want = k3.int8_conv_plain(x, w, stride, padding)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        checked["int8_conv"].add(conv_key(x, w, stride, padding))
+        m, n, kk = k3.gemm_dims(x_shape, w_shape, stride, padding)
+        n_bytes = x.numel() + w.numel() + 4 * got.numel()
+        bms, bby = bound_ms(n_bytes, 2.0 * m * n * kk, INT8)
+        kms = time_ms(lambda: k3.int8_conv_int32(x, w, stride, padding),
+                      iters=10)
+        row = {"conv": name, "x": list(x_shape), "w": list(w_shape),
+               "stride": list(stride), "padding": list(padding),
+               "m": m, "n": n, "k": kk, "equal": equal,
+               "max_abs_err": int((got.long() - want.long()).abs().max()),
+               "kernel_ms": kms, "bound_ms": bms, "bound_by": bby,
+               "bound_share": bms / kms, "bound_basis": INT8}
+        if b == 16:
+            row["plain_ms"] = time_ms(
+                lambda: k3.int8_conv_plain(x, w, stride, padding), iters=2,
+                warmup=1)
+            lib = im2col_int_mm(x, w, stride, padding)
+            row["int_mm_equal"] = bool(torch.equal(lib, want))
+            row["int_mm_ms"] = time_ms(
+                lambda: im2col_int_mm(x, w, stride, padding), iters=5)
+            del lib
+            conv = F.conv3d if x.dim() == 5 else F.conv2d
+            xb = x.movedim(-1, 1).to(torch.bfloat16)
+            wb = w.movedim(-1, 1).to(torch.bfloat16)
+            row["bf16_cudnn_ms"] = time_ms(
+                lambda: conv(xb, wb, stride=stride, padding=padding),
+                iters=10)
+            del xb, wb
+        rows[name, b] = row
+        del x, w, got, want
+    torch.cuda.empty_cache()
+    for b in (1, 16, 128, 0):
+        emit({"phase": "k3_int8_conv", "batch": b or "odd",
+              "rows": [r for (_, bb), r in rows.items() if bb == b]})
+    emit({"phase": "k3_int8_conv_summary", "geometries": len(geoms),
+          "int8_convs_per_forward": calls[0],
+          "all_equal": all(r["equal"] for r in rows.values())})
+    for (name, b), r in rows.items():
+        check(r["equal"], f"K3 vs twin at conv {name}, B={b}: "
+                          f"max |d| {r['max_abs_err']}")
+    return rows
+
+
+def serving_phase(dev, cfg, weights, record) -> dict:
+    """``python -m lipsync_tpu_torch.serving.app``'s server in this process
+    at full width: the calibrated weights saved as a ``.pth``, ``Settings``
+    pointing at it, the port's ``Predictor`` from
+    ``settings.to_predictor_config()`` with ``ClipBoxes``, and
+    ``Server(AppState(...), load_model=False)``, whose real start-up wraps
+    the engine in ``CoalescingEngine``, runs the warmup and starts the
+    embedded worker. Sequential requests over stdlib ``urllib``, the job
+    flow, the metrics route, 4 concurrent clients, then latency readings.
+    Returns the kernels' launches over the main run."""
+    import tempfile
+
+    import torch
+
+    from lipsync_tpu_torch.inference.predictor import Predictor
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.preprocessing import ingest
+    from lipsync_tpu_torch.serving.app import (
+        MINIMAL_RESULT_KEYS,
+        AppState,
+        Server,
+    )
+    from lipsync_tpu_torch.serving.config import Settings
+    from lipsync_tpu_torch.serving.schemas import LipSyncResponse
+    from lipsync_tpu_torch.utils import synthetic
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serving_"))
+    model_path = work / "calibrated.pth"
+    torch.save({k: v.detach().cpu() for k, v in weights.items()}, model_path)
+    memory, boxes, paths = clip_set(ingest, synthetic)
+    settings = Settings(model_path=model_path, port=0, device=str(dev),
+                        sqlite_db_path=str(work / "jobs.db"),
+                        worker_poll_interval_sec=0.05)
+    out = {}
+    with memory.installed():
+        predictor = Predictor(model_path=settings.model_path,
+                              config=settings.to_predictor_config(),
+                              model_config=cfg, detector_backend=boxes,
+                              device=settings.device)
+        state = AppState(settings, predictor=predictor)
+        # The main run: every count set to 0, then the start-up (warmup
+        # included), the requests, the job and the concurrent clients.
+        k1.launches = k2.launches = 0
+        with record():
+            server = Server(state, load_model=False)
+            server.start_background()
+            try:
+                state.warmup.join()
+                out = serving_requests(server, state, memory, paths,
+                                       MINIMAL_RESULT_KEYS, LipSyncResponse)
+                main_launches = {"log_mel": k1.launches,
+                                 "hf_stem": k2.launches}
+                emit({"phase": "serving", **out,
+                      "main_launches": main_launches})
+                serving_checks(out)
+                out["readings"] = serving_readings(server, predictor,
+                                                   memory, paths)
+                emit({"phase": "serving_latency", **out["readings"],
+                      "coalesce_max_wait_ms": settings.coalesce_max_wait_ms})
+            finally:
+                server.stop()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return main_launches
+
+
+def serving_requests(server, state, memory, paths, minimal_keys,
+                     response_cls) -> dict:
+    """The checked part of the serving phase: health, S and L against the
+    direct ``predict``, the job flow, the metrics route, 4 concurrent
+    clients of S."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+
+    client = Client(server.port)
+    predictor = state.predictor
+    out = {"healthz": client.get("/healthz")}
+    seq, bodies, direct = {}, {}, {}
+    for name in ("S", "L"):
+        before = (k1.launches, k2.launches)
+        code, body = client.post_upload("/api/lip-sync",
+                                        memory.upload(name))
+        torch.cuda.synchronize()
+        launched = (k1.launches - before[0], k2.launches - before[1])
+        direct[name] = predictor.predict(paths[name])
+        want = response_cls.from_result(direct[name]).to_dict()
+        diff, mismatches = json_diff(body, want) if code == 200 else (
+            None, [f"status {code}: {body}"])
+        bodies[name] = body
+        seq[name] = {"status": code, "verdict": body.get("verdict"),
+                     "confidence": body.get("confidence"),
+                     "selected_track_id": body.get("selected_track_id"),
+                     "max_abs_dfloat_vs_predict": diff,
+                     "mismatches": mismatches[:5],
+                     "launches": {"log_mel": launched[0],
+                                  "hf_stem": launched[1]}}
+    out["lip_sync"] = seq
+
+    code, job = client.post_upload("/jobs", memory.upload("L"))
+    t0 = time.perf_counter()
+    status = None
+    while time.perf_counter() - t0 < 300:
+        status, res = client.get(f"/result/{job['job_id']}")
+        if status != 202:
+            break
+        time.sleep(0.05)
+    debug = client.get(f"/result/{job['job_id']}?include_debug=true")[1]
+    want_min = {k: v for k, v in bodies["L"].items() if k in minimal_keys}
+    d_min, m_min = json_diff(res.get("result"), want_min)
+    raw = json.loads(json.dumps(direct["L"]))
+    d_dbg, m_dbg = json_diff(debug.get("result"), raw)
+    out["job"] = {"create_status": code, "status": res.get("status"),
+                  "result_status": status,
+                  "seconds": time.perf_counter() - t0,
+                  "minimal_keys": sorted(res.get("result") or {}),
+                  "minimal_max_abs_dfloat": d_min,
+                  "minimal_mismatches": m_min[:5],
+                  "debug_max_abs_dfloat": d_dbg,
+                  "debug_mismatches": m_dbg[:5]}
+    out["evaluate"] = client.post_json("/api/metrics/evaluate", {
+        "evaluations": [{"predicted_is_fake": True, "true_is_fake": True},
+                        {"predicted_is_fake": False,
+                         "true_is_fake": True}]})
+
+    # 4 clients, 8 requests of S. The linger is raised to 25 ms for this
+    # check so that the clients' scoring calls land in one window.
+    eng = predictor.engine
+    calls, lock = [0], threading.Lock()
+    score_probs = eng.score_probs
+
+    def counted(visual, audio):
+        with lock:
+            calls[0] += 1
+        return score_probs(visual, audio)
+
+    eng.score_probs = counted
+    saved_wait, eng.max_wait_s = eng.max_wait_s, 0.025
+    dispatched0 = eng.batches_dispatched
+    barrier = threading.Barrier(4)
+
+    def client_thread(_):
+        barrier.wait()
+        return [client.post_upload("/api/lip-sync", memory.upload("S"))
+                for _ in range(2)]
+
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            results = [r for rs in pool.map(client_thread, range(4))
+                       for r in rs]
+    finally:
+        del eng.score_probs
+        eng.max_wait_s = saved_wait
+    out["concurrent"] = {
+        "requests": len(results),
+        "statuses": sorted({c for c, _ in results}),
+        "same_verdict": all(b.get("verdict") == seq["S"]["verdict"]
+                            for _, b in results),
+        "max_abs_dconfidence": max(abs(b["confidence"]
+                                       - seq["S"]["confidence"])
+                                   for _, b in results),
+        "score_probs_calls": calls[0],
+        "batches_dispatched": eng.batches_dispatched - dispatched0,
+    }
+    return out
+
+
+def serving_checks(out) -> None:
+    check(out["healthz"] == (200, {"status": "ok", "model_loaded": True}),
+          f"healthz: {out['healthz']}")
+    for name, row in out["lip_sync"].items():
+        check(row["status"] == 200 and not row["mismatches"]
+              and row["max_abs_dfloat_vs_predict"] <= 1e-6,
+              f"/api/lip-sync {name} vs predict: {row}")
+        check(row["launches"]["log_mel"] >= 1
+              and row["launches"]["hf_stem"] >= 1,
+              f"/api/lip-sync {name} did not launch K1 and K2: {row}")
+    job = out["job"]
+    check(job["create_status"] == 200 and job["status"] == "COMPLETED"
+          and not job["minimal_mismatches"]
+          and job["minimal_max_abs_dfloat"] <= 1e-6
+          and not job["debug_mismatches"]
+          and job["debug_max_abs_dfloat"] <= 1e-6, f"job flow: {job}")
+    code, m = out["evaluate"]
+    check(code == 200 and (m["tp"], m["fn"], m["total"]) == (1, 1, 2),
+          f"metrics route: {out['evaluate']}")
+    c = out["concurrent"]
+    check(c["statuses"] == [200] and c["same_verdict"]
+          and c["max_abs_dconfidence"] <= 1e-3,
+          f"concurrent requests: {c}")
+    check(c["batches_dispatched"] < c["score_probs_calls"],
+          f"concurrent requests did not coalesce: {c}")
+
+
+def serving_readings(server, predictor, memory, paths) -> dict:
+    """Latency p50 / p95 and requests/s at concurrency 1 and 4, and the
+    direct ``predict`` of the same predictor (median of 5)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    client = Client(server.port)
+
+    def run(name, n, conc):
+        def one(_):
+            t0 = time.perf_counter()
+            code, _ = client.post_upload("/api/lip-sync",
+                                         memory.upload(name))
+            check(code == 200, f"reading request {name}: {code}")
+            return (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(conc) as pool:
+            ms = list(pool.map(one, range(n)))
+        wall = time.perf_counter() - t0
+        return {"requests": n, "concurrency": conc,
+                "p50_ms": float(np.percentile(ms, 50)),
+                "p95_ms": float(np.percentile(ms, 95)),
+                "requests_per_s": n / wall}
+
+    def direct(name, threaded=False):
+        """``predict`` on this thread, or on a new thread per call as the
+        server's handlers run it."""
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if threaded:
+                t = threading.Thread(target=predictor.predict,
+                                     args=(paths[name],))
+                t.start()
+                t.join()
+            else:
+                predictor.predict(paths[name])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    return {"S_c1": run("S", 10, 1), "L_c1": run("L", 5, 1),
+            "S_c4": run("S", 16, 4), "L_c4": run("L", 8, 4),
+            "direct_predict_ms_median5": {"S": direct("S"),
+                                          "L": direct("L")},
+            "direct_predict_new_thread_ms_median5": {
+                "S": direct("S", True), "L": direct("L", True)}}
+
+
+def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
+                  track_inputs, plain_int8, record) -> dict:
+    """The three single-card options of ``Settings``, each served by a
+    ``Predictor`` built from ``Settings(option).to_predictor_config()`` on
+    the calibrated weights (bf16, the entry point a user calls) and by an
+    fp32 engine from ``load_engine`` with the same option: clips S and L,
+    and requests R1-R3 through the fp32 engines. ``default`` is
+    ``Settings()`` on the same weights, the baseline. Returns the kernels'
+    launches over the main run, K2's under the fold and K3's per int8
+    forward."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.inference.engine import ScoringEngine, load_engine
+    from lipsync_tpu_torch.inference.predictor import Predictor
+    from lipsync_tpu_torch.models import layers as layers_mod
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.preprocessing import ingest
+    from lipsync_tpu_torch.serving.config import Settings
+    from lipsync_tpu_torch.utils import synthetic
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_options_"))
+    model_path = work / "calibrated.pth"
+    torch.save({k: v.detach().cpu()
+                for k, v in weight_sets["bn_calibrated"].items()}, model_path)
+    memory, boxes, paths = clip_set(ingest, synthetic)
+    options = {"default": {}, "shared": {"shared_visual_encoding": True},
+               "fold": {"fold_hf_stem": True},
+               "int8": {"quantized_int8": True}}
+    counters = (k1, k2, k3)
+
+    def counts():
+        return tuple(k.launches for k in counters)
+
+    def forwards_of(engine):
+        """Forwards of ``engine``'s model, counted at the audio encoder,
+        which every forward runs once (the shared path calls the model's
+        ``encode_visual`` and ``score_encoded``, not ``forward``)."""
+        n = [0]
+        engine.model.audio_encoder.register_forward_pre_hook(
+            lambda *_: n.__setitem__(0, n[0] + 1))
+        return n
+
+    preds, engs, n_fwd = {}, {}, {}
+    for name, opt in options.items():
+        settings = Settings(model_path=model_path, **opt)
+        preds[name, "bf16"] = Predictor(
+            model_path=settings.model_path,
+            config=settings.to_predictor_config(), model_config=cfg,
+            detector_backend=boxes, device=dev)
+        engs[name] = load_engine(model_path, cfg, use_bfloat16=False,
+                                 device=dev, **opt)
+        preds[name, "fp32"] = Predictor(
+            config=settings.to_predictor_config(), model_config=cfg,
+            engine=engs[name], detector_backend=boxes, device=dev)
+        for dtype in ("bf16", "fp32"):
+            n_fwd[name, dtype] = forwards_of(preds[name, dtype].engine)
+    seeded_int8, seeded_fold = (
+        ScoringEngine(weight_sets["seeded"], cfg, use_bfloat16=False,
+                      device=dev, **{opt: True})
+        for opt in ("quantized_int8", "fold_hf_stem"))
+    int8_convs = sum(isinstance(m, layers_mod.ConvBNAct)
+                     and m.lowering == "int8"
+                     for m in engs["int8"].model.modules())
+
+    def launched(fn):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [a - b for a, b in zip(counts(), before)]
+
+    results, rows = {}, {}
+    with memory.installed():
+        # The main run: every count set to 0, each option's predictors on S
+        # and L, its fp32 engine on R1-R3.
+        k1.launches = k2.launches = k3.launches = 0
+        with record():
+            for (name, dtype), pred in preds.items():
+                for clip in ("S", "L"):
+                    f0 = n_fwd[name, dtype][0]
+                    results[name, dtype, clip], n = launched(
+                        lambda: pred.predict(paths[clip]))
+                    rows[name, dtype, clip] = {
+                        "launches": dict(zip(("log_mel", "hf_stem",
+                                              "int8_conv"), n)),
+                        "forwards": n_fwd[name, dtype][0] - f0}
+            logits = {}
+            for name in options:
+                for rname, req in requests.items():
+                    f0 = n_fwd[name, "fp32"][0]
+                    logits[name, rname], n = launched(
+                        lambda: serve(engs[name], *req, probs=False))
+                    rows[name, "fp32", rname] = {
+                        "launches": dict(zip(("log_mel", "hf_stem",
+                                              "int8_conv"), n)),
+                        "forwards": n_fwd[name, "fp32"][0] - f0}
+        main_launches = dict(zip(("log_mel", "hf_stem", "int8_conv"),
+                                 counts()))
+        # Measured in the main run: K2 under the fold, K3 per int8 forward.
+        of = {name: [r for (n, _, _), r in rows.items() if n == name]
+              for name in ("fold", "int8")}
+        main_launches["hf_stem_fold"] = sum(r["launches"]["hf_stem"]
+                                            for r in of["fold"])
+        main_launches["int8_conv_per_forward"] = (
+            sum(r["launches"]["int8_conv"] for r in of["int8"])
+            / sum(r["forwards"] for r in of["int8"]))
+
+        def window_probs(r):
+            return np.asarray(r["tracks"][0]["window_confidences"])
+
+        cmp = {}
+        base = results["default", "bf16", "L"]
+        shared = {d: results["shared", d, "L"] for d in ("bf16", "fp32")}
+        crops, audio = track_inputs(requests["R2"])
+        one = engs["shared"].score_track_logits(
+            crops[: cfg.video_frames], [0], audio[:1])
+        cmp["shared"] = {
+            "L_window_probs_finite": all(
+                bool(np.isfinite(window_probs(r)).all())
+                for r in shared.values()),
+            "one_window_vs_per_window_fp32": float(np.abs(
+                one - eng32.score_track_logits(
+                    crops[: cfg.video_frames], [0], audio[:1])).max()),
+            "L_bf16_abs_dconfidence_vs_default": abs(
+                shared["bf16"]["confidence"] - base["confidence"]),
+            "L_bf16_verdict": [shared["bf16"]["verdict"], base["verdict"]],
+            "L_max_abs_dprob_vs_default_bf16": float(np.abs(
+                window_probs(shared["bf16"]) - window_probs(base)).max()),
+        }
+        # The JAX package bounds the fold on seeded weights (|dprob| <
+        # 1e-3); on the calibrated ones its border deviation is a reading.
+        cmp["fold"] = {
+            "fp32_max_abs_dprob_vs_unfolded_seeded": {
+                r: float(np.abs(serve(seeded_fold, *req)
+                                - serve(seeded32, *req)).max())
+                for r, req in requests.items()},
+            "fp32_max_abs_dprob_vs_unfolded_calibrated": {
+                r: float(np.abs(engs["fold"].calibrator(logits["fold", r])
+                                - eng32.calibrator(logits["default", r])
+                                ).max()) for r in requests}}
+        twin = {}
+        for r, req in requests.items():
+            with plain_int8():
+                twin[r] = serve(engs["int8"], *req, probs=False)
+        seeded = {r: float(np.abs(serve(seeded_int8, *req)
+                                  - serve(seeded32, *req)).max())
+                  for r, req in requests.items()}
+        cmp["int8"] = {
+            "convs_per_forward": int8_convs,
+            "fp32_max_abs_dlogit_kernel_vs_twin": {
+                r: float(np.abs(logits["int8", r] - twin[r]).max())
+                for r in requests},
+            "fp32_max_abs_dprob_vs_default_calibrated": {
+                r: float(np.abs(engs["int8"].calibrator(logits["int8", r])
+                                - eng32.calibrator(logits["default", r])
+                                ).max()) for r in requests},
+            "fp32_max_abs_dprob_vs_default_seeded": seeded,
+        }
+        emit({"phase": "options", "runs": {
+            "_".join(k): {**v, **({"verdict": results[k]["verdict"],
+                                   "confidence": results[k]["confidence"]}
+                                  if k in results else {})}
+            for k, v in rows.items()}, "compare": cmp,
+            "main_launches": main_launches})
+
+        # Every number is printed before any of them is checked.
+        for (name, dtype, run), row in rows.items():
+            n1, n2, n3 = row["launches"].values()
+            f = row["forwards"]
+            check(f >= 1 and n1 >= 1, f"{name} {dtype} {run}: {row}")
+            check((n2 == 0) == (name == "fold"),
+                  f"K2 launches under {name} {dtype} {run}: {row}")
+            check(n3 == (int8_convs * f if name == "int8" else 0),
+                  f"K3 launches under {name} {dtype} {run}: {row}")
+        c = cmp["shared"]
+        check(c["L_window_probs_finite"], f"shared L: {c}")
+        check(c["one_window_vs_per_window_fp32"] <= 1e-5,
+              f"shared one-window track vs per-window: {c}")
+        for r, d in cmp["fold"][
+                "fp32_max_abs_dprob_vs_unfolded_seeded"].items():
+            check(d <= 1e-3, f"fold {r}: |dprob| {d} vs unfolded")
+        for r, d in cmp["int8"]["fp32_max_abs_dlogit_kernel_vs_twin"].items():
+            check(d <= 1e-4, f"int8 {r}: kernel vs twin |dlogit| {d}")
+        for r, d in seeded.items():
+            check(d <= 5e-3, f"int8 {r}: seeded |dprob| {d} vs fp32")
+
+        # Latency of every option's bf16 predictor on S and L and of its
+        # engine on R3, median of 5.
+        lat = {}
+        for name in options:
+            pred = preds[name, "bf16"]
+            for clip in ("S", "L"):
+                times = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pred.predict(paths[clip])
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                lat[f"{name}_{clip}"] = statistics.median(times)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve(pred.engine, *requests["R3"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            lat[f"{name}_R3"] = statistics.median(times)
+        emit({"phase": "options_latency", "dtype": "bf16",
+              "latency_ms_median5": lat})
+    del preds, engs, seeded_int8, seeded_fold
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return main_launches
+
+
 def main() -> None:
     import torch
 
@@ -991,7 +1757,9 @@ def main() -> None:
     )
     from lipsync_tpu_torch.ops import mel as mel_ops
     from lipsync_tpu_torch.ops.kernels import build
+    from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
     from lipsync_tpu_torch.ops.kernels import mel as k1
     from lipsync_tpu_torch.preprocessing import audio as audio_mod
     from lipsync_tpu_torch.preprocessing.video import crop_track_on_device
@@ -1002,7 +1770,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    peak_key, (mem_bw, fp32_peak, tf32_peak) = peaks(kind)
+    peak_key, (mem_bw, fp32_peak, tf32_peak, int8_peak) = peaks(kind)
     emit({"phase": "card", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks_of": peak_key,
@@ -1030,7 +1798,8 @@ def main() -> None:
 
     def bound_ms(n_bytes: float, flops: float, basis: str = SIMT):
         t_bytes = n_bytes / mem_bw
-        t_ops = flops / (tf32_peak if basis == TENSOR else fp32_peak)
+        t_ops = flops / {TENSOR: tf32_peak, INT8: int8_peak}.get(basis,
+                                                                 fp32_peak)
         return max(t_bytes, t_ops) * 1e3, (
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1072,7 +1841,7 @@ def main() -> None:
                     + 3 * (n_fft // 2 + 1) + 2 * support)
 
     k1_rows = {}
-    checked = {"log_mel": set(), "hf_stem": set()}
+    checked = {"log_mel": set(), "hf_stem": set(), "int8_conv": set()}
     for n in (16384, 32768, 65536, 262144, 1 << 20):
         y2 = torch.from_numpy(synthetic.pcm(rng, n)).to(dev)[None]
         t = k1.n_frames_for(n)
@@ -1191,10 +1960,12 @@ def main() -> None:
         return row
 
     # An odd shape with partial output tiles, the refinement's three half
-    # windows of clip S (phase 6) in their bucket of 4, and the training
-    # phase's validation batch (phase 7).
+    # windows of clip S (phase 6) in their bucket of 4, the training
+    # phase's validation batch (phase 7) and the serving phase's warmup and
+    # coalesced buckets (phase 8).
     for shape in ((2, 4, 15, 10, 3), (4, 16, 96, 96, 3),
-                  (VAL_CLIPS, 32, 96, 96, 3)):
+                  (VAL_CLIPS, 32, 96, 96, 3),
+                  *((b, 32, 96, 96, 3) for b in K2_EXTRA_BATCHES)):
         video = torch.rand(*shape, generator=gen).to(dev)
         err32, _, used16 = k2_errors(video)
         emit({"phase": "k2_hf_stem", "shape": list(shape),
@@ -1284,9 +2055,31 @@ def main() -> None:
             lambda y: k1.finish_db(k1.log_mel_db_plain(y[None]))[0])
         artifact_mod.hf_stem = k2.hf_stem_plain
         try:
-            yield
+            with plain_int8():
+                yield
         finally:
             audio_mod.log_mel_spectrogram_fused, artifact_mod.hf_stem = saved
+
+    @contextlib.contextmanager
+    def plain_int8():
+        """The int8 lowering with K3's twin in K3's place."""
+        saved = layers_mod.int8_conv_int32
+        layers_mod.int8_conv_int32 = k3.int8_conv_plain
+        try:
+            yield
+        finally:
+            layers_mod.int8_conv_int32 = saved
+
+    def track_inputs(req):
+        """A track request's crops and aligned mel windows, as ``serve``
+        makes them."""
+        frames, boxes, y, _ = req
+        crops = crop_track_on_device(frames, boxes, 0, cfg.crop_size)
+        mel = audio_mod.preprocess_audio_pcm(y)
+        n = len(crops)
+        return crops, np.stack([
+            align_audio_chunk(mel, s, n, cfg.audio_frames, cfg.video_frames)
+            for s in range(0, n - cfg.video_frames + 1, STRIDE)])
 
     # Weights: seeded, and the same with every BatchNorm calibrated on
     # R2's windows (fp32, before the counts are set to 0).
@@ -1300,6 +2093,10 @@ def main() -> None:
         "seeded": seeded,
     }
     del cal_visual, cal_audio
+
+    # ── 4b. K3 vs its twin at every int8 encoder convolution ──────────
+    k3_rows = k3_phase(dev, cfg, seeded, time_ms, bound_ms, checked)
+
     engines = {name: (ScoringEngine(w, cfg),  # bf16 on CUDA by default
                       ScoringEngine(w, cfg, use_bfloat16=False))
                for name, w in weight_sets.items()}
@@ -1404,6 +2201,16 @@ def main() -> None:
     training_launches = training_phase(
         dev, cfg, profile_served, lambda: kernel_inputs(seen))
 
+    # ── 8. the HTTP service ───────────────────────────────────────────
+    torch.cuda.empty_cache()
+    serving_launches = serving_phase(dev, cfg, weight_sets["bn_calibrated"],
+                                     lambda: kernel_inputs(seen))
+
+    # ── 9. the single-card options ────────────────────────────────────
+    option_launches = options_phase(
+        dev, cfg, weight_sets, requests, serve, eng32, engines["seeded"][1],
+        track_inputs, plain_int8, lambda: kernel_inputs(seen))
+
     # Every input shape that the main runs gave a kernel was checked above.
     unchecked = {name: sorted(shapes - checked[name])
                  for name, shapes in seen.items()}
@@ -1413,10 +2220,13 @@ def main() -> None:
     check(not any(unchecked.values()),
           f"main-path kernel inputs not held against the twin: {unchecked}")
 
-    # ── 8. kernels ────────────────────────────────────────────────────
+    # ── 10. kernels ───────────────────────────────────────────────────
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
+    # K3 at R2's bucket, on the encoder convolution with the most work.
+    k3m = max((r for (_, b), r in k3_rows.items() if b == 16),
+              key=lambda r: r["m"] * r["n"] * r["k"])
     emit({"kernels": [
         {"name": "log_mel", "route": "cuda",
          "source": "lipsync_tpu_torch/csrc/mel.cu",
@@ -1424,6 +2234,8 @@ def main() -> None:
          "launches": main_launches["log_mel"],
          "launches_predictor": predictor_launches["log_mel"],
          "launches_training": training_launches["log_mel"],
+         "launches_serving": serving_launches["log_mel"],
+         "launches_options": option_launches["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
@@ -1434,10 +2246,27 @@ def main() -> None:
          "launches": main_launches["hf_stem"],
          "launches_predictor": predictor_launches["hf_stem"],
          "launches_training": training_launches["hf_stem"],
+         "launches_serving": serving_launches["hf_stem"],
+         "launches_options": option_launches["hf_stem"],
+         # under the fold (one cuDNN conv in K2's place): checked to be 0
+         "launches_fold": option_launches["hf_stem_fold"],
          "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
          "plain_ms": k2m["plain_ms"], "bound_ms": k2m["bound_ms"],
          "bound_by": k2m["bound_by"], "bound_basis": k2m["bound_basis"],
          "library_ms": None},
+        {"name": "int8_conv", "route": "cuda",
+         "source": "lipsync_tpu_torch/csrc/int8_conv.cu",
+         # no Pallas counterpart: the XLA int8 conv of Int8Conv
+         "replaces": "lipsync_tpu/models/layers.py:140",
+         "launches": option_launches["int8_conv"],
+         "launches_per_forward": option_launches["int8_conv_per_forward"],
+         "shape": {k: k3m[k] for k in ("x", "w", "stride", "padding")},
+         "max_abs_err": k3m["max_abs_err"], "ms": k3m["kernel_ms"],
+         "plain_ms": k3m["plain_ms"], "bound_ms": k3m["bound_ms"],
+         "bound_by": k3m["bound_by"], "bound_basis": k3m["bound_basis"],
+         "library_ms": k3m["int_mm_ms"],
+         "library": "im2col + torch._int_mm (cuBLASLt int8)",
+         "bf16_cudnn_ms": k3m["bf16_cudnn_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

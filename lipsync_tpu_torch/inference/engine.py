@@ -7,10 +7,19 @@ rounding on the host, ``/255`` on the device), and the long-video path
 uploads a track's crops once and gathers its overlapping windows on the
 device. The forward runs under ``torch.inference_mode()``; on CUDA it runs
 in bf16 by default (``use_bfloat16=None``), on the CPU in fp32.
+
+The JAX engine's single-device serving options, each off by default:
+``shared_visual_encoding`` (the long path encodes a track's frames once and
+gathers every window's features), ``quantized_int8`` (encoder convolutions
+int8 x int8 -> int32 through K3, ``ModelConfig.conv_lowering="int8"``) and
+``fold_hf_stem`` (the HF stem's Laplacian composed into its conv1,
+``ModelConfig.hf_stem_fold``). Each loads the same state dict. ``mesh``
+(data parallelism) is not ported and raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Sequence
 
@@ -25,6 +34,7 @@ from lipsync_tpu_torch.models.bridge import (
 from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel, ModelConfig
 from lipsync_tpu_torch.training import checkpoints
 from lipsync_tpu_torch.utils.device import DeviceLike, get_device
+from lipsync_tpu_torch.utils.weights import default_checkpoint
 
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
@@ -75,19 +85,17 @@ class ScoringEngine:
         fold_hf_stem: bool = False,
         device: DeviceLike = None,
     ):
-        waiting = {
-            "mesh": mesh is not None,
-            "shared_visual_encoding": shared_visual_encoding,
-            "quantized_int8": quantized_int8,
-            "fold_hf_stem": fold_hf_stem,
-        }
-        for name, asked in waiting.items():
-            if asked:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet")
         self.device = get_device(device)
         if use_bfloat16 is None:
             use_bfloat16 = self.device.type == "cuda"
         dtype = torch.bfloat16 if use_bfloat16 else torch.float32
+        if fold_hf_stem:
+            config = dataclasses.replace(config, hf_stem_fold=True)
+        if quantized_int8:
+            config = dataclasses.replace(config, conv_lowering="int8")
+        self.shared_visual_encoding = bool(shared_visual_encoding)
         self.config = config
         self.model = LipSyncModel(config, dtype=dtype)
         self.model.load_state_dict(_as_state_dict(variables), strict=True)
@@ -203,7 +211,19 @@ class ScoringEngine:
         with torch.inference_mode():
             idx = starts_d[:, None] + torch.arange(chunk, device=self.device)
             windows = crops_d[idx].float() / 255.0
-            return self.model(windows, audio_d)
+            if not self.shared_visual_encoding:
+                return self.model(windows, audio_d)
+            # Shared-track encoding: the visual encoder has no temporal
+            # stride, so the whole padded track is encoded once and every
+            # window gathers its frames' features. As in the JAX engine,
+            # interior windows then see real neighbour frames in the
+            # temporal convolutions where the per-window path pads with
+            # zeros; a one-window track is the per-window function.
+            v_feat, v_map = self.model.encode_visual(
+                crops_d.float()[None] / 255.0)
+            v_map = v_map[0][idx] if v_map is not None else None
+            return self.model.score_encoded(v_feat[0][idx], v_map, windows,
+                                            audio_d)
 
     def score_track_probs(self, crops, starts, audio_windows) -> np.ndarray:
         return self.calibrator(
@@ -238,7 +258,7 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 
 
 def load_engine(
-    model_path: Optional[Path],
+    model_path: Optional[Path] = None,
     config: ModelConfig = ModelConfig(),
     calibrator: Optional[Calibrator] = None,
     use_bfloat16: Optional[bool] = None,
@@ -254,11 +274,16 @@ def load_engine(
     writes it), or from a ``.npz`` that holds a JAX-layout variables tree
     flattened with ``/``-joined keys (``params/visual_encoder/stem/conv/
     kernel``), through the bridge. The JAX package's orbax directories
-    need JAX and raise."""
+    need JAX and raise. ``model_path=None`` falls back to
+    ``utils/weights.default_checkpoint()`` (``MODEL_PATH``, then the
+    flagship)."""
     if model_path is None:
-        raise FileNotFoundError(
-            "No model path given and no committed checkpoint to fall back to"
-        )
+        model_path = default_checkpoint()
+        if model_path is None:
+            raise FileNotFoundError(
+                "No model path given and no committed flagship checkpoint "
+                "at weights/flagship"
+            )
     model_path = Path(model_path)
     if not model_path.exists():
         raise FileNotFoundError(f"Model weights not found at {model_path}")

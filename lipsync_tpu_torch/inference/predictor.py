@@ -101,11 +101,12 @@ class PredictorConfig:
     # Shard the window batch axis over the first N devices (0/1 = single
     # device). Not ported yet: a value above 1 raises NotImplementedError.
     data_parallel_devices: int = 0
-    # Quantized serving: encoder convs in int8. Not ported yet (raises).
+    # Quantized serving: encoder convs int8 x int8 -> int32 on K3
+    # (models/layers.int8_conv); per-tensor activation scales make a
+    # window's result depend weakly on its batch-mates.
     quantized_int8: bool = False
     # Serving lowering: compose the HF artifact stem's Laplacian into its
     # conv1 kernel. Exact interior; the strided border row/col deviates.
-    # Not ported yet (raises).
     fold_hf_stem: bool = False
     # Speaking-activity semantics. "alignment" = reference parity: the
     # motion<->audio-energy correlation (reference predictor.py:334-370),
@@ -393,8 +394,10 @@ class Predictor:
             closer = getattr(engine, "close", None)
             if callable(closer):  # CoalescingEngine: stop the dispatcher
                 closer()
-            if hasattr(engine, "model"):
+            try:
                 del engine.model
+            except AttributeError:  # no model, or a CoalescingEngine's
+                pass
             self.engine = None
             torch.cuda.empty_cache()
 

@@ -11,7 +11,11 @@ Counterpart of ``models/artifact.py`` in the JAX package:
    then Conv3d 3->32->64 with spatial stride 2, global average pooled. In
    eval mode the Laplacian + conv1 + BN + ReLU run as the fused kernel K2
    (``ops/kernels/hf_stem.py``); training mode (batch-statistics BN) is a
-   different function and runs the modules.
+   different function and runs the modules. ``fold_stem`` (the JAX
+   package's ``_FoldedStemConvBN``, a serving lowering) composes the
+   Laplacian into conv1's kernel (:func:`compose_spatial`) and runs one
+   (3, 5, 5) Conv3d instead, in either mode, with the same parameters; it
+   does not launch K2.
 
 Layouts are channels-last at the boundary: feature map ``(B, T, H, W, D)``,
 raw clip ``(B, T, H, W, 3)``.
@@ -23,6 +27,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from lipsync_tpu_torch.models.layers import BatchNorm, compute_in
 from lipsync_tpu_torch.ops.kernels.hf_stem import hf_stem
@@ -35,6 +40,27 @@ def _laplacian_kernel_3ch() -> torch.Tensor:
     for i in range(3):
         w[i, i] = k
     return w
+
+
+def compose_spatial(lap_weight: torch.Tensor,
+                    conv_weight: torch.Tensor) -> torch.Tensor:
+    """A per-frame 2-d filter ``(m, i, kh, kw)`` composed into the following
+    3-d conv ``(o, m, kt, bh, bw)``, in fp32: for cross-correlations
+    ``z = k2 * (k1 * x)`` the composed kernel is ``K[o, i, t, a+p, b+q] =
+    sum_m k1[m, i, a, b] k2[o, m, t, p, q]``, an ``(o, i, kt, kh+bh-1,
+    kw+bw-1)`` kernel whose one conv over ``x`` (with summed padding) equals
+    the pair except at outputs whose receptive field reaches the
+    intermediate's zero-padding ring: the first and last strided row and
+    column."""
+    k1, k2 = lap_weight.float(), conv_weight.float()
+    kh, kw = k1.shape[2], k1.shape[3]
+    o, _, kt, bh, bw = k2.shape
+    out = k2.new_zeros(o, k1.shape[1], kt, kh + bh - 1, kw + bw - 1)
+    for a in range(kh):
+        for b in range(kw):
+            out[:, :, :, a : a + bh, b : b + bw] += torch.einsum(
+                "mi,omtpq->oitpq", k1[:, :, a, b], k2)
+    return out
 
 
 def _conv_bn_relu_stack(dims, stride) -> nn.Sequential:
@@ -65,8 +91,9 @@ class TemporalInconsistencyDetector(nn.Module):
 
 
 class HighFrequencyDetector(nn.Module):
-    def __init__(self, out_dim: int = 64):
+    def __init__(self, out_dim: int = 64, fold_stem: bool = False):
         super().__init__()
+        self.fold_stem = fold_stem
         self.laplacian = nn.Conv2d(3, 3, 3, padding=1, bias=False)
         with torch.no_grad():
             self.laplacian.weight.copy_(_laplacian_kernel_3ch())
@@ -77,7 +104,14 @@ class HighFrequencyDetector(nn.Module):
         convolutions in bf16 (K2 accumulates in fp32 either way)."""
         b, t, h, w, c = video.shape
         with compute_in(video):
-            if self.training:
+            if self.fold_stem:
+                conv = self.conv3d[0]
+                x = F.conv3d(video.permute(0, 4, 1, 2, 3),
+                             compose_spatial(self.laplacian.weight,
+                                             conv.weight),
+                             conv.bias, stride=(1, 2, 2), padding=(1, 2, 2))
+                x = self.conv3d[1:3](x)
+            elif self.training:
                 frames = video.reshape(b * t, h, w, c).permute(0, 3, 1, 2)
                 lap = self.laplacian(frames).reshape(b, t, c, h, w)
                 x = self.conv3d[:3](lap.transpose(1, 2))
@@ -95,7 +129,7 @@ class HighFrequencyDetector(nn.Module):
 class ArtifactDetector(nn.Module):
     def __init__(self, visual_feature_dim: int = 256, embed_dim: int = 256,
                  use_delta_map: bool = True, use_high_freq: bool = True,
-                 high_freq_dim: int = 64):
+                 high_freq_dim: int = 64, fold_hf_stem: bool = False):
         super().__init__()
         self.use_delta_map = use_delta_map
         self.temporal_detector = TemporalInconsistencyDetector(
@@ -103,7 +137,8 @@ class ArtifactDetector(nn.Module):
         )
         in_dim = embed_dim + (visual_feature_dim // 4) * (1 + use_delta_map)
         if use_high_freq:
-            self.high_freq_detector = HighFrequencyDetector(high_freq_dim)
+            self.high_freq_detector = HighFrequencyDetector(
+                high_freq_dim, fold_stem=fold_hf_stem)
             in_dim += high_freq_dim
         else:
             self.high_freq_detector = None

@@ -7,17 +7,20 @@ packed ``in_proj_weight``/``in_proj_bias`` attention). Convolution blocks
 work on channels-first tensors (torch's NC[D]HW); the encoders permute from
 the package's channels-last layouts at their boundary. Every BatchNorm is
 :class:`BatchNorm`: eps 1e-5, momentum 0.1 (torch's convention, flax's
-0.9), and flax's running-variance rule.
+0.9), and flax's running-variance rule. ``ConvBNAct(lowering="int8")`` runs
+its convolution through :func:`int8_conv` (K3) with the same parameters.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from lipsync_tpu_torch.ops.kernels.int8_conv import int8_conv_int32
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 
@@ -96,9 +99,56 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+# 1/127 rounded to float32. XLA compiles the JAX package's ``max / 127.0``
+# into a multiplication by this reciprocal, which rounds a scale differently
+# from a true division in some channels and so moves values that sit near a
+# half step of the grid; the port multiplies too, to quantize as the
+# compiled JAX package does.
+_INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / scale), -127, 127)`` as int8; ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def int8_conv(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    stride: Sequence[int],
+    padding: Sequence[int],
+) -> torch.Tensor:
+    """Counterpart of the JAX package's ``layers.Int8Conv``: post-training
+    dynamic quantization of one 2-d or 3-d convolution (channels-first
+    ``x``, torch weight layout). Weights quantize per output channel
+    (``max|w| / 127`` as a product with ``_INV_127``, floored at 1e-12),
+    activations per *tensor* over the whole batch, symmetric; the
+    convolution runs int8 x int8 -> int32 (K3);
+    the result dequantizes as ``y * (x_scale * w_scale)`` plus the bias, in
+    fp32, and comes back in ``x``'s dtype. Because the activation scale is
+    per tensor, a window's quantization grid depends on its batch-mates,
+    as in the JAX package. Inference only: K3 has no backward."""
+    x32, w32 = x.float(), weight.float()
+    w_scale = torch.clamp(
+        w32.abs().amax(dim=tuple(range(1, w32.dim()))) * _INV_127,
+        min=1e-12)
+    x_scale = torch.clamp(x32.abs().max() * _INV_127, min=1e-12)
+    w_q = quantize_int8(w32, w_scale.view(-1, *[1] * (w32.dim() - 1)))
+    x_q = quantize_int8(x32, x_scale)
+    last = lambda t: t.movedim(1, -1).contiguous()  # noqa: E731
+    y = int8_conv_int32(last(x_q), last(w_q), stride, padding)
+    out = y.float() * (x_scale * w_scale)
+    if bias is not None:
+        out = out + bias.float()
+    return out.movedim(-1, 1).to(x.dtype)
+
+
 class ConvBNAct(nn.Sequential):
     """Conv -> BatchNorm -> ReLU (``act=False`` drops the ReLU), N-d by the
-    rank of ``kernel_size``. Only the plain convolution lowering is ported."""
+    rank of ``kernel_size``. ``lowering="int8"`` runs the convolution as
+    :func:`int8_conv` on the same parameters (inference only)."""
 
     def __init__(
         self,
@@ -109,7 +159,10 @@ class ConvBNAct(nn.Sequential):
         padding: Sequence[int],
         bias: bool = False,
         act: bool = True,
+        lowering: str = "conv",
     ):
+        if lowering not in ("conv", "int8"):
+            raise ValueError(f"unknown conv lowering {lowering!r}")
         nd = len(kernel_size)
         layers = [
             _CONV[nd](in_channels, out_channels, tuple(kernel_size),
@@ -119,6 +172,18 @@ class ConvBNAct(nn.Sequential):
         if act:
             layers.append(nn.ReLU())
         super().__init__(*layers)
+        self.lowering = lowering
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.lowering == "conv":
+            return super().forward(x)
+        if self.training:
+            raise RuntimeError("the int8 lowering is for inference only")
+        conv = self[0]
+        x = int8_conv(x, conv.weight, conv.bias, conv.stride, conv.padding)
+        for layer in list(self)[1:]:
+            x = layer(x)
+        return x
 
 
 class ResidualBlockND(nn.Module):
@@ -131,17 +196,19 @@ class ResidualBlockND(nn.Module):
         out_channels: int,
         kernel_size: Sequence[int],
         stride: Sequence[int],
+        lowering: str = "conv",
     ):
         super().__init__()
         nd = len(kernel_size)
         pad = [(k - 1) // 2 for k in kernel_size]
         self.conv1 = ConvBNAct(in_channels, out_channels, kernel_size, stride,
-                               pad)
+                               pad, lowering=lowering)
         self.conv2 = ConvBNAct(out_channels, out_channels, kernel_size,
-                               [1] * nd, pad, act=False)
+                               [1] * nd, pad, act=False, lowering=lowering)
         if any(s != 1 for s in stride) or in_channels != out_channels:
             self.downsample = ConvBNAct(in_channels, out_channels, [1] * nd,
-                                        stride, [0] * nd, act=False)
+                                        stride, [0] * nd, act=False,
+                                        lowering=lowering)
         else:
             self.downsample = None
 

@@ -58,9 +58,12 @@ class ModelConfig:
     use_high_freq_artifact: bool = True
     preserve_audio_temporal: bool = True
     dropout: float = 0.1
-    # Only "conv" is ported; "int8" is a later slice's work.
+    # Encoder conv lowering: "conv", or "int8" (dynamic post-training
+    # quantization through K3, inference only; layers.int8_conv).
     conv_lowering: str = "conv"
-    # The HF-stem fold is a later slice's work.
+    # Serving lowering of the HF artifact stem: the Laplacian composed into
+    # conv1 (artifact.compose_spatial). Exact in the strided interior; the
+    # border row and column deviate.
     hf_stem_fold: bool = False
 
     video_frames: int = 32
@@ -73,22 +76,19 @@ class LipSyncModel(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig(),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.conv_lowering != "conv":
-            raise NotImplementedError(
-                f"conv_lowering={config.conv_lowering!r} is not ported yet"
-            )
-        if config.hf_stem_fold:
-            raise NotImplementedError("hf_stem_fold is not ported yet")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.config, self.dtype = config, dtype
         cfg = config
         e = cfg.embed_dim
-        self.visual_encoder = VisualEncoder(cfg.visual_feature_dim,
-                                            dropout=cfg.dropout)
+        self.visual_encoder = VisualEncoder(
+            cfg.visual_feature_dim, dropout=cfg.dropout,
+            conv_lowering=cfg.conv_lowering,
+        )
         self.audio_encoder = AudioEncoder(
             cfg.audio_feature_dim, dropout=cfg.dropout,
             preserve_audio_temporal=cfg.preserve_audio_temporal,
+            conv_lowering=cfg.conv_lowering,
         )
         self.projection = FeatureProjection(cfg.visual_feature_dim,
                                             cfg.audio_feature_dim, e)
@@ -103,6 +103,7 @@ class LipSyncModel(nn.Module):
                 cfg.visual_feature_dim, e,
                 use_delta_map=cfg.use_delta_artifact,
                 use_high_freq=cfg.use_high_freq_artifact,
+                fold_hf_stem=cfg.hf_stem_fold,
             )
             head_in = e + e // 2
         else:

@@ -11,7 +11,8 @@ the input's) sets the precision of layers 3-4 (autocast for bf16) and of
 the feature map, which the artifact branch's convolutions consume; the
 pooled output is fp32. On BatchNorm-calibrated weights, bf16 in the stem
 alone moves P(REAL) by up to ~1e-2 against fp32, more than the 4e-3 the
-served path is held to (PERF.md).
+served path is held to (PERF.md). ``conv_lowering="int8"`` runs every
+convolution through K3 (``layers.int8_conv``).
 """
 
 from __future__ import annotations
@@ -32,15 +33,18 @@ from lipsync_tpu_torch.models.layers import (
 
 class VisualEncoder(nn.Module):
     def __init__(self, feature_dim: int = 256, base_channels: int = 64,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, conv_lowering: str = "conv"):
         super().__init__()
         c = base_channels
         self.dropout = dropout
-        self.stem = ConvBNAct(3, c, (3, 7, 7), (1, 2, 2), (1, 3, 3))
-        self.layer1 = ResidualBlockND(c, c, (3, 3, 3), (1, 1, 1))
-        self.layer2 = ResidualBlockND(c, c * 2, (3, 3, 3), (1, 2, 2))
-        self.layer3 = ResidualBlockND(c * 2, c * 4, (3, 3, 3), (1, 2, 2))
-        self.layer4 = ResidualBlockND(c * 4, feature_dim, (3, 3, 3), (1, 2, 2))
+        low = conv_lowering
+        self.stem = ConvBNAct(3, c, (3, 7, 7), (1, 2, 2), (1, 3, 3),
+                              lowering=low)
+        self.layer1 = ResidualBlockND(c, c, (3, 3, 3), (1, 1, 1), low)
+        self.layer2 = ResidualBlockND(c, c * 2, (3, 3, 3), (1, 2, 2), low)
+        self.layer3 = ResidualBlockND(c * 2, c * 4, (3, 3, 3), (1, 2, 2), low)
+        self.layer4 = ResidualBlockND(c * 4, feature_dim, (3, 3, 3), (1, 2, 2),
+                                      low)
 
     def forward(self, x: torch.Tensor, return_map: bool = False,
                 dtype: Optional[torch.dtype] = None):

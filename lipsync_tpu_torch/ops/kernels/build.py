@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lipsync_tpu_torch_kernels"
-KERNELS = ("mel", "hf_stem")
+KERNELS = ("mel", "hf_stem", "int8_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -15,6 +15,7 @@ afterwards in one batched call on the device (``ops/image.py``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
@@ -83,6 +84,12 @@ class CascadeDetector:
     removed ``CascadeClassifier``, so evaluation runs in ``native/haar.cc``
     via :mod:`lipsync_tpu_torch.preprocessing.haar` using the distro's cascade
     data files.
+
+    One detector serves concurrent requests (the service's handler threads
+    and its job worker share the predictor's backend), so its per-video
+    state is per thread: the ROI state that :meth:`reset` clears, and a
+    ``min_neighbors`` set after construction (the relaxed retry's), which
+    holds for the calling thread only. Each clip is detected on one thread.
     """
 
     name = "cascade"
@@ -100,7 +107,8 @@ class CascadeDetector:
         )
 
         self.max_num_faces = max_num_faces
-        self.min_neighbors = min_neighbors
+        self._local = threading.local()
+        self._min_neighbors = min_neighbors
         # ROI-guided video mode: after the first hit, scan only expanded
         # regions around the previous frame's faces; do a full-frame sweep
         # every ``refresh_every`` frames to catch entering faces. The host
@@ -108,8 +116,6 @@ class CascadeDetector:
         # host/device split), and faces move little at 15 fps.
         self.track_rois = track_rois
         self.refresh_every = max(1, refresh_every)
-        self._last_faces: List[Tuple[int, int, int, int]] = []
-        self._since_full = 0
         frontal = find_cascade_file("haarcascade_frontalface_default.xml")
         if frontal is None:
             raise RuntimeError("No frontal face cascade file found")
@@ -117,8 +123,33 @@ class CascadeDetector:
         profile = find_cascade_file("haarcascade_profileface.xml")
         self._profile = HaarCascade(profile) if profile else None
 
+    @property
+    def min_neighbors(self) -> int:
+        return getattr(self._local, "min_neighbors", self._min_neighbors)
+
+    @min_neighbors.setter
+    def min_neighbors(self, value: int) -> None:
+        self._local.min_neighbors = value
+
+    @property
+    def _last_faces(self) -> List[Tuple[int, int, int, int]]:
+        return getattr(self._local, "last_faces", [])
+
+    @_last_faces.setter
+    def _last_faces(self, faces) -> None:
+        self._local.last_faces = faces
+
+    @property
+    def _since_full(self) -> int:
+        return getattr(self._local, "since_full", 0)
+
+    @_since_full.setter
+    def _since_full(self, n: int) -> None:
+        self._local.since_full = n
+
     def reset(self) -> None:
-        """Clear per-video ROI state (called at the start of each clip)."""
+        """Clear the calling thread's per-video ROI state (called at the
+        start of each clip)."""
         self._last_faces = []
         self._since_full = 0
 

@@ -9,6 +9,7 @@ device crops of a track atol 1e-5 (the crop tolerance of
 
 import importlib.util
 import sys
+import threading
 from unittest import mock
 
 import numpy as np
@@ -241,3 +242,52 @@ def test_chained_and_fake_detectors_match_jax():
     assert fd.center_crop_box(90, 160, 48) == j_fd.center_crop_box(90, 160, 48)
     assert fd.face_bbox_to_mouth_bbox(10, 20, 50, 60, 64, 64) == (
         j_fd.face_bbox_to_mouth_bbox(10, 20, 50, 60, 64, 64))
+
+
+def test_default_backend_state_is_per_thread(backends):
+    """Two clips detected on two threads in strict alternation through the
+    one shared default backend, as the service's handler threads do, give
+    each clip's boxes detected alone; the relaxed retry's min_neighbors set
+    on one thread is not seen by the other."""
+    port = backends[0]
+    clips = [synthetic_frames(n=12),
+             synthetic_frames(n=12, h=240, w=320, seed=4),
+             synthetic_frames(n=12, h=240, w=320, seed=5)]
+    relaxed = [False, True, False]
+
+    def detect_all(frames, relax):
+        port.reset()
+        if relax:
+            port.min_neighbors = 1
+        try:
+            return _boxes([port.detect(f) for f in frames])
+        finally:
+            port.min_neighbors = 3
+
+    alone = [detect_all(f, r) for f, r in zip(clips, relaxed)]
+    got, seen = [None] * len(clips), [[] for _ in clips]
+    barrier = threading.Barrier(len(clips))
+
+    def run(k):
+        port.reset()
+        if relaxed[k]:
+            port.min_neighbors = 1
+        out = []
+        for frame in clips[k]:
+            for turn in range(len(clips)):
+                barrier.wait()
+                if turn == k:
+                    out.append(port.detect(frame))
+                    seen[k].append(port.min_neighbors)
+        got[k] = _boxes(out)
+
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(len(clips))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got == alone
+    assert alone[0] != alone[1] != alone[2]
+    assert [set(s) for s in seen] == [{3}, {1}, {3}]
+    assert port.min_neighbors == 3

@@ -143,16 +143,16 @@ def test_track_windows_equal_direct_windows(engines):
     np.testing.assert_allclose(tracked, direct, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("option", ["mesh", "shared_visual_encoding",
-                                    "quantized_int8", "fold_hf_stem"])
+@pytest.mark.parametrize("option", ["mesh"])
 def test_waiting_options_raise(option):
     model, cfg, variables, _ = seeded_pair(5)
-    kwargs = {option: object() if option == "mesh" else True}
+    kwargs = {option: object()}
     with pytest.raises(NotImplementedError):
         ScoringEngine(variables, cfg, device="cpu", **kwargs)
 
 
-def test_load_engine_needs_an_existing_path(tmp_path):
+def test_load_engine_needs_an_existing_path(tmp_path, monkeypatch):
+    monkeypatch.delenv("MODEL_PATH", raising=False)
     with pytest.raises(FileNotFoundError):
         load_engine(None, device="cpu")
     with pytest.raises(FileNotFoundError):

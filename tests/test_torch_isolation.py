@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, no flax, nothing of the JAX package, and
-no silent fall-back to the CPU."""
+"""The port stands alone: no JAX, no flax, nothing of the JAX package, no
+pydantic, httpx or fastapi, and no silent fall-back to the CPU."""
 
 import ast
 import subprocess
@@ -14,7 +14,8 @@ from lipsync_tpu_torch.utils.device import get_device
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "lipsync_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "lipsync_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "lipsync_tpu", "pydantic",
+             "httpx", "fastapi")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -27,7 +28,8 @@ def test_importing_every_module_loads_no_jax():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax') "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pydantic', 'httpx', "
+        "'fastapi') "
         "or m == 'lipsync_tpu' or m.startswith('lipsync_tpu.'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
@@ -123,3 +125,26 @@ def test_entry_points_default_to_cuda(monkeypatch):
             entry(SimpleNamespace())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceDatasetCache(SimpleNamespace())
+
+
+def test_server_and_worker_ask_for_cuda(tmp_path, monkeypatch):
+    """``Settings.device`` defaults to "cuda": with a real model file the
+    server's start-up and the standalone worker raise where there is no
+    CUDA; they never serve from the CPU unasked."""
+    from lipsync_tpu_torch.models import LipSyncModel
+    from lipsync_tpu_torch.serving import worker
+    from lipsync_tpu_torch.serving.app import AppState, Server
+    from lipsync_tpu_torch.serving.config import Settings
+
+    path = tmp_path / "w.pth"
+    torch.save(LipSyncModel().state_dict(), path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    settings = Settings(model_path=path, port=0,
+                        sqlite_db_path=str(tmp_path / "jobs.db"))
+    assert settings.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Server(AppState(settings=settings))
+    monkeypatch.setenv("MODEL_PATH", str(path))
+    monkeypatch.setenv("SQLITE_DB_URL", str(tmp_path / "w.db"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        worker.main()

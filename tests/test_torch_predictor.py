@@ -32,34 +32,12 @@ from lipsync_tpu_torch.inference.predictor import Predictor, PredictorConfig
 from lipsync_tpu_torch.preprocessing import mux
 from lipsync_tpu_torch.preprocessing.face_detection import FakeDetector
 from tests.fixtures import synthetic_frames, write_av_video
-from tests.torch_parity import seeded_pair
+from tests.torch_parity import assert_same, seeded_pair
 
 torch.set_num_threads(1)
 
 BOX = (60, 70, 110, 105)
 SECOND = (10, 10, 50, 40)
-PROBABILITIES = {"confidence", "raw_confidence", "manipulation_probability",
-                 "window_confidences", "window_weighted_confidence"}
-
-
-def assert_same(got, want, path="response", tol=1e-4):
-    if isinstance(got, dict):
-        assert isinstance(want, dict) and set(got) == set(want), (
-            path, sorted(set(got) ^ set(want)))
-        for k in got:
-            assert_same(got[k], want[k], f"{path}.{k}",
-                        1e-5 if k in PROBABILITIES else tol)
-    elif isinstance(got, (list, tuple)):
-        assert isinstance(want, (list, tuple)), path
-        assert len(got) == len(want), (path, len(got), len(want))
-        for i, (g, w) in enumerate(zip(got, want)):
-            assert_same(g, w, f"{path}[{i}]", tol)
-    elif isinstance(got, float):
-        assert isinstance(want, float), (path, got, want)
-        assert abs(got - want) <= tol, (path, got, want, tol)
-    else:
-        assert type(got) is type(want) and got == want, (path, got, want)
-
 
 @pytest.fixture(scope="module")
 def engines():
@@ -166,10 +144,7 @@ def test_model_path_required_as_in_jax(monkeypatch):
         JPredictor()
 
 
-@pytest.mark.parametrize("knob", [
-    {"data_parallel_devices": 2}, {"quantized_int8": True},
-    {"fold_hf_stem": True}, {"shared_visual_encoding": True},
-])
+@pytest.mark.parametrize("knob", [{"data_parallel_devices": 2}])
 def test_options_not_ported_yet_raise(engines, tmp_path, knob):
     port_engine, _, cfg, _ = engines
     path = tmp_path / "w.pth"

@@ -78,3 +78,29 @@ def port_apply(fn, *args):
     if isinstance(out, tuple):
         return tuple(o.numpy() for o in out)
     return out.numpy()
+
+
+PROBABILITIES = {"confidence", "raw_confidence", "manipulation_probability",
+                 "window_confidences", "window_weighted_confidence"}
+
+
+def assert_same(got, want, path="response", tol=1e-4):
+    """Two predictor responses (or JSON bodies) field by field: keys,
+    strings, bools, ints equal; probabilities within 1e-5, every other
+    float within ``tol``."""
+    if isinstance(got, dict):
+        assert isinstance(want, dict) and set(got) == set(want), (
+            path, sorted(set(got) ^ set(want)))
+        for k in got:
+            assert_same(got[k], want[k], f"{path}.{k}",
+                        1e-5 if k in PROBABILITIES else tol)
+    elif isinstance(got, (list, tuple)):
+        assert isinstance(want, (list, tuple)), path
+        assert len(got) == len(want), (path, len(got), len(want))
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{path}[{i}]", tol)
+    elif isinstance(got, float):
+        assert isinstance(want, float), (path, got, want)
+        assert abs(got - want) <= tol, (path, got, want, tol)
+    else:
+        assert type(got) is type(want) and got == want, (path, got, want)
