@@ -127,6 +127,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -159,9 +160,11 @@ PEAKS = {
 }
 SIMT, TENSOR, INT8 = "fp32 SIMT", "TF32 tensor cores", "int8 tensor cores"
 # K2 inputs of the served paths beyond phase 4's batches: the server's
-# warmup (a two-window track) and concurrent requests coalesced into
-# buckets of 2, 4 and 8 one-window requests.
-K2_EXTRA_BATCHES = (2, 4, 8)
+# warmup (a two-window track), concurrent requests coalesced into buckets
+# of 2, 4 and 8 one-window requests, and phase 10's shards (a bucket split
+# over two: R3's 128 windows in halves of 64, R2's 16 in halves of 8, a
+# ragged bucket of 8 in halves of 4).
+K2_EXTRA_BATCHES = (2, 4, 8, 64)
 
 
 def emit(obj) -> None:
@@ -182,6 +185,22 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def tf32_on() -> None:
+    """PyTorch's defaults (cuDNN TF32 on) and matmul TF32 on: what an entry
+    point must turn off."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def tf32_flags() -> dict:
+    import torch
+
+    return {"cudnn": torch.backends.cudnn.allow_tf32,
+            "matmul": torch.backends.cuda.matmul.allow_tf32}
 
 
 def check(cond: bool, what: str) -> None:
@@ -636,7 +655,9 @@ def activation_pattern(tape: list, replay: bool, seen: dict):
             seen["relu_flip_scale"] = max(
                 seen["relu_flip_scale"],
                 float(xd[flipped].abs().max() / xd.std()))
-        return x * mask
+        # In the memory layout of relu's own output: dropout lays its noise
+        # out in memory order.
+        return torch.empty_like(x).copy_(x * mask)
 
     def pool_(x, window, strides, padding):
         fn = {2: F.max_pool2d, 3: F.max_pool3d}[len(window)]
@@ -647,7 +668,8 @@ def activation_pattern(tape: list, replay: bool, seen: dict):
             return out
         rec = next(it).to(x.device)
         seen["pool_flips"] += int((rec != idx).sum())
-        return x.flatten(2).gather(2, rec.flatten(2)).view(rec.shape)
+        return torch.empty_like(out).copy_(
+            x.flatten(2).gather(2, rec.flatten(2)).view(rec.shape))
 
     F.relu = relu_
     visual_encoder.max_pool_same = audio_encoder.max_pool_same = pool_
@@ -673,6 +695,23 @@ class SGD1:
 
     def step(self):
         self.opt.step()
+
+
+def conv_biases_before_batchnorm(model) -> set:
+    """A conv bias in front of a training-mode BatchNorm has a zero
+    gradient in exact arithmetic: two runs hold rounding noise there."""
+    import torch
+
+    zero = set()
+    for name, mod in model.named_modules():
+        kids = list(mod.children()) if isinstance(mod, torch.nn.Sequential) \
+            else []
+        for i, (a, b) in enumerate(zip(kids, kids[1:])):
+            if (isinstance(a, torch.nn.modules.conv._ConvNd)
+                    and a.bias is not None
+                    and isinstance(b, torch.nn.modules.batchnorm._BatchNorm)):
+                zero.add(f"{name}.{i}.bias")
+    return zero
 
 
 def training_parity(dev, cfg) -> dict:
@@ -722,17 +761,7 @@ def training_parity(dev, cfg) -> dict:
     cpu = run(torch.device("cpu"), True)
     metric_rel = {k: abs(card[0][k] - cpu[0][k]) / max(abs(cpu[0][k]), 1e-6)
                   for k in cpu[0]}
-    # A conv bias in front of a training-mode BatchNorm has a zero gradient
-    # in exact arithmetic: both devices hold rounding noise there.
-    zero = set()
-    for name, mod in LipSyncModel(cfg0).named_modules():
-        kids = list(mod.children()) if isinstance(mod, torch.nn.Sequential) \
-            else []
-        for i, (a, b) in enumerate(zip(kids, kids[1:])):
-            if (isinstance(a, torch.nn.modules.conv._ConvNd)
-                    and a.bias is not None
-                    and isinstance(b, torch.nn.modules.batchnorm._BatchNorm)):
-                zero.add(f"{name}.{i}.bias")
+    zero = conv_biases_before_batchnorm(LipSyncModel(cfg0))
     grad_rel = {n: float((card[1][n] - g).abs().max() / g.abs().max())
                 for n, g in cpu[1].items() if n not in zero}
     stat_rel = {n: float((card[2][n] - s).abs().max()
@@ -859,11 +888,13 @@ def training_phase(dev, cfg, profile_steps, record) -> dict:
         # the device cache, the finetune and the served checkpoint.
         k1.launches = k2.launches = 0
         with record():
+            tf32_on()
             t0 = time.perf_counter()
             history = train_mod.run_training(
                 train_mod.build_argparser().parse_args(
                     base + ["--epochs", "3"]), device=dev)
             seconds["run_training"] = time.perf_counter() - t0
+            tf32_after = {"run_training": tf32_flags()}
             meta = {name: ckpt.load_metadata(out / name)
                     for name in ("latest", "best_model_loss",
                                  "best_model_accuracy")}
@@ -886,6 +917,7 @@ def training_phase(dev, cfg, profile_steps, record) -> dict:
                      *geometry]), device=dev)
             seconds["device_cache"] = time.perf_counter() - t0
 
+            tf32_on()
             t0 = time.perf_counter()
             ft = work / "finetune"
             ft_history = finetune_mod.run_finetune(
@@ -896,6 +928,7 @@ def training_phase(dev, cfg, profile_steps, record) -> dict:
                      "--max-steps-per-epoch", "4", "--epochs", "2",
                      "--frozen-epochs", "1", *geometry]), device=dev)
             seconds["run_finetune"] = time.perf_counter() - t0
+            tf32_after["run_finetune"] = tf32_flags()
             ft_meta = {name: ckpt.load_metadata(ft / name)
                        for name in ("best_frozen_loss", "best_model_f1")}
 
@@ -941,7 +974,11 @@ def training_phase(dev, cfg, profile_steps, record) -> dict:
         "epoch1_visual_params": moved(saved[0], saved[1], "visual_encoder."),
         "epoch2_visual_params": moved(saved[1], saved[2], "visual_encoder."),
     }
-    emit({"phase": "training_run", "history": history,
+    for entry, flags in tf32_after.items():
+        check(flags == {"cudnn": False, "matmul": False},
+              f"{entry} left TF32 on: {flags}")
+    emit({"phase": "training_run", "tf32_after": tf32_after,
+          "history": history,
           "resumed": resumed, "device_cache": cached,
           "finetune": ft_history, "seconds": seconds,
           "meta_latest": meta["latest"], "meta_resumed": meta_resumed,
@@ -1043,14 +1080,15 @@ def training_phase(dev, cfg, profile_steps, record) -> dict:
             emit({"phase": "training_step_time", "feed": feed, "batch": b,
                   "tf32": False, **time_steps(step, next_batch, b)})
     # The same step with PyTorch's default for convolutions (TF32 on) and
-    # TF32 matmuls: a reading for later work, not a path that is checked.
+    # TF32 matmuls: a reading for later work, not the deployed
+    # configuration (the entry points turn TF32 off) and not checked.
     saved_tf32 = (torch.backends.cudnn.allow_tf32,
                   torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         emit({"phase": "training_step_time", "feed": "device_cache",
-              "batch": 32, "tf32": True,
+              "batch": 32, "tf32": True, "deployed": False,
               **time_steps(cache_step, from_cache, 32)})
     finally:
         (torch.backends.cudnn.allow_tf32,
@@ -1734,9 +1772,463 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
     return main_launches
 
 
+def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
+                        record) -> dict:
+    """Phase 10, data parallelism (``parallel/mesh.py``) on one card, at
+    full width on ``weights``:
+
+    (a) the sharded engine over ``[dev, dev]`` (two shards on one card) in
+        fp32 against the one-device engine: the default lowering on R2, R3
+        and a ragged bucket (|dprob| <= 2e-5), shared encoding on R2 and R3
+        (|dlogit| <= 1e-4), int8 on one window and on a bucket of 32
+        (logits <= 1e-5; the stem's activation scale on both shards equal
+        to the one device's, the whole bucket's);
+    (b) ``Predictor`` over that mesh in bf16 on clips S and L against the
+        one-device predictor (verdict and track equal, confidence <= 1e-6),
+        and ``PredictorConfig(data_parallel_devices=2)``, which takes the
+        first two cards, fewer if fewer exist;
+    (c) the trainer as a world of one on NCCL (:func:`world_of_one`, in a
+        child process that ``torch.distributed.run`` starts);
+
+    and a reading of TF32's effect on S, L and R3, which the entry points
+    now turn off.
+
+    Returns the kernels' launches over the sharded runs of (a) and (b), in
+    all and by device; their kernel inputs are recorded with ``record``."""
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.inference.engine import ScoringEngine
+    from lipsync_tpu_torch.inference.predictor import (
+        Predictor,
+        PredictorConfig,
+    )
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.parallel import mesh as mesh_lib
+    from lipsync_tpu_torch.preprocessing import ingest
+    from lipsync_tpu_torch.utils import synthetic
+    from lipsync_tpu_torch.utils.device import disable_tf32
+
+    t_phase = time.perf_counter()
+    mesh = [dev, dev]
+    tracks = {name: track_inputs(requests[name]) for name in ("R2", "R3")}
+
+    def starts_of(crops):
+        return list(range(0, len(crops) - cfg.video_frames + 1, STRIDE))
+
+    crops3, aw3 = tracks["R3"]
+    windows = np.stack([crops3[s:s + cfg.video_frames]
+                        for s in starts_of(crops3)[:32]])
+
+    def pair(**kw):
+        return (ScoringEngine(weights, cfg, use_bfloat16=False, **kw),
+                ScoringEngine(weights, cfg, use_bfloat16=False, mesh=mesh,
+                              **kw))
+
+    def sigmoid(x):
+        return 1 / (1 + np.exp(-np.asarray(x, np.float64)))
+
+    kernels = {"log_mel": k1, "hf_stem": k2, "int8_conv": k3}
+    launches = {name: 0 for name in kernels}
+    by_device = {name: {} for name in kernels}
+
+    @contextlib.contextmanager
+    def main_run():
+        """A call on the sharded path: its kernel inputs are recorded and
+        its launches counted (the one-device references' are not)."""
+        before = {n: (m.launches, dict(m.launches_by_device))
+                  for n, m in kernels.items()}
+        with record():
+            yield
+        torch.cuda.synchronize()
+        for n, m in kernels.items():
+            launches[n] += m.launches - before[n][0]
+            for d, c in m.launches_by_device.items():
+                by_device[n][d] = (by_device[n].get(d, 0) + c
+                                   - before[n][1].get(d, 0))
+
+    out = {"default_dprob": {}, "shared_dlogit": {}, "int8_dlogit": {},
+           "shard_launches": {}}
+    # (a) the default lowering
+    single, sharded = pair()
+    for name, (crops, aw) in tracks.items():
+        st = starts_of(crops)
+        want = single.score_track_logits(crops, st, aw)
+        before = k2.launches
+        with main_run():
+            got = sharded.score_track_logits(crops, st, aw)
+        out["shard_launches"][f"hf_stem_{name}"] = k2.launches - before
+        out["default_dprob"][name] = float(
+            np.abs(sigmoid(got) - sigmoid(want)).max())
+    with main_run():
+        got = sharded.score_logits(windows[:5], aw3[:5])
+    out["default_dprob"]["ragged_5"] = float(np.abs(
+        sigmoid(got)
+        - sigmoid(single.score_logits(windows[:5], aw3[:5]))).max())
+    del single, sharded
+    # shared encoding: frame shards with a halo
+    single, sharded = pair(shared_visual_encoding=True)
+    for name, (crops, aw) in tracks.items():
+        st = starts_of(crops)
+        with main_run():
+            got = sharded.score_track_logits(crops, st, aw)
+        out["shared_dlogit"][name] = float(np.abs(
+            got - single.score_track_logits(crops, st, aw)).max())
+    del single, sharded
+    # int8: the shards reduce each activation scale in lockstep
+    single, sharded = pair(quantized_int8=True)
+    scales = []
+    real_max = mesh_lib.all_max
+
+    def spy(value):
+        result = real_max(value)
+        scales.append(float(result))
+        return result
+
+    mesh_lib.all_max = spy  # one device: each scale is its own abs-max
+    try:
+        for n in (1, 32):
+            want = single.score_logits(windows[:n], aw3[:n])
+            one_device = scales[:1]
+            scales.clear()
+            before = k3.launches
+            with main_run():
+                got = sharded.score_logits(windows[:n], aw3[:n])
+            out["shard_launches"][f"int8_conv_{n}"] = k3.launches - before
+            out["int8_dlogit"][n] = float(np.abs(got - want).max())
+            out.setdefault("int8_stem_scale", {})[n] = {
+                "shards": scales[:2], "one_device": one_device}
+            scales.clear()
+    finally:
+        mesh_lib.all_max = real_max
+    del single, sharded
+
+    # (b) the predictor over the mesh, bf16
+    memory, boxes, paths = clip_set(ingest, synthetic)
+    configs = {"S": PredictorConfig(refine_margin=1.5),
+               "L": PredictorConfig()}
+    eng_single = ScoringEngine(weights, cfg)
+    eng_mesh = ScoringEngine(weights, cfg, mesh=mesh)
+    predicted = {}
+    with memory.installed():
+        for name, pcfg in configs.items():
+            rows = []
+            for eng in (eng_single, eng_mesh):
+                pred = Predictor(config=pcfg, model_config=cfg,
+                                 engine=eng, detector_backend=boxes)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (main_run() if eng is eng_mesh
+                      else contextlib.nullcontext()):
+                    r = pred.predict(paths[name])
+                torch.cuda.synchronize()
+                rows.append((r, (time.perf_counter() - t0) * 1e3))
+            (a, ms_a), (b, ms_b) = rows
+            def spans(r):
+                return [(t["track_id"], [list(w) for w in t["window_spans"]])
+                        for t in r["tracks"] or []]
+
+            predicted[name] = {
+                "verdict": [a["verdict"], b["verdict"]],
+                "tracks_equal": spans(a) == spans(b),
+                "dconfidence": abs(a["confidence"] - b["confidence"]),
+                "ms_one_device": ms_a, "ms_two_shards": ms_b}
+    launches["by_device"] = by_device
+    # TF32's effect on the served path, a reading: S and L through the bf16
+    # predictor and R3 through the bf16 engine, median of 3, with TF32 as
+    # the entry points set it (off) and as PyTorch leaves it (cuDNN on),
+    # in turns off, on, on, off; and R3's |dprob| between the two.
+    crops_r3, aw_r3 = tracks["R3"]
+    st_r3 = starts_of(crops_r3)
+    with memory.installed():
+        preds = {name: Predictor(config=pcfg, model_config=cfg,
+                                 engine=eng_single, detector_backend=boxes)
+                 for name, pcfg in configs.items()}
+        runs = {"S": lambda: preds["S"].predict(paths["S"]),
+                "L": lambda: preds["L"].predict(paths["L"]),
+                "R3": lambda: eng_single.score_track_probs(crops_r3, st_r3,
+                                                          aw_r3)}
+        tf32_ms = {"off": {k: [] for k in runs}, "on": {k: [] for k in runs}}
+        r3_probs = {}
+        for mode in ("off", "on", "on", "off"):
+            if mode == "on":
+                tf32_on()
+            else:
+                disable_tf32()
+            for name, fn in runs.items():
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = fn()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                tf32_ms[mode][name].append(statistics.median(times))
+                if name == "R3":
+                    r3_probs[mode] = np.asarray(res)
+        disable_tf32()
+    out["tf32_reading"] = {
+        "ms_median3_in_turns": tf32_ms,
+        "r3_dprob_on_vs_off": float(np.abs(r3_probs["on"]
+                                           - r3_probs["off"]).max())}
+    del eng_single, eng_mesh, preds
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(weights, Path(tmp) / "w.pth")
+        pred = Predictor(model_path=Path(tmp) / "w.pth",
+                         config=PredictorConfig(data_parallel_devices=2),
+                         model_config=cfg, device=dev)
+        out["data_parallel_devices_2_mesh"] = [str(d)
+                                               for d in pred.engine.mesh]
+        check(pred.engine.mesh == mesh_lib.make_mesh(2),
+              f"data_parallel_devices=2 built {pred.engine.mesh}")
+        del pred
+
+    # (c) the trainer as a world of one on NCCL, in a child process
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node=1", str(ROOT / "chip_smoke.py"),
+             "--world-of-one", tmp],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+        check(proc.returncode == 0,
+              f"world of one exited {proc.returncode}")
+        world = json.loads((Path(tmp) / "world_of_one.json").read_text())
+    out["world_of_one"] = world
+    out["world_of_one_seconds"] = child_s
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "data_parallel", **out, "predictor": predicted,
+          "launches": launches})
+
+    # Every number is printed above before any is checked.
+    for name, v in out["default_dprob"].items():
+        check(v <= 2e-5, f"sharded vs one device {name}: |dprob| {v}")
+    for name, v in out["shared_dlogit"].items():
+        check(v <= 1e-4, f"shared encoding sharded {name}: |dlogit| {v}")
+    # The int8 encoders are exact integer convolutions on scales equal to
+    # the one device's; the fp32 token stages after them round with half
+    # the batch as in the other lowerings (2.4e-6 shared, PR 6's first
+    # run), hence 1e-5.
+    for n, v in out["int8_dlogit"].items():
+        check(v <= 1e-5, f"int8 sharded, {n} windows: |dlogit| {v}")
+    for n, sc in out["int8_stem_scale"].items():
+        check(sc["shards"] == sc["one_device"] * 2,
+              f"int8 stem scale differs from one device's ({n}): {sc}")
+    sl = out["shard_launches"]
+    check(sl["hf_stem_R2"] == 2 and sl["hf_stem_R3"] == 2,
+          f"K2 not launched once per shard: {sl}")
+    check(sl["int8_conv_1"] == sl["int8_conv_32"] == 2 * 24,
+          f"K3 not launched 24 times per shard: {sl}")
+    for name, r in predicted.items():
+        check(r["verdict"][0] == r["verdict"][1] and r["tracks_equal"]
+              and r["dconfidence"] <= 1e-6,
+              f"predictor over two shards, {name}: {r}")
+    check(world["backend"] == "nccl" and world["world"] == 1,
+          f"world of one: {world['backend']} x {world['world']}")
+    for feed, par in world["parity"].items():
+        for k, v in par["metric_rel"].items():
+            check(v <= 1e-5, f"group step {feed} {k}: {v}")
+        check(par["stat_rel_max"] <= 1e-5,
+              f"group step {feed} statistics: {par['stat_rel_max']}")
+        check(par["grad_rel_max"] <= PARITY_GRAD_TOL,
+              f"group step {feed} gradients: {par['grad_rel_worst5']}")
+    for entry, flags in world["tf32_after"].items():
+        check(flags == {"cudnn": False, "matmul": False},
+              f"{entry} in the group left TF32 on: {flags}")
+    check(all(np.isfinite(v) for h in world["histories"].values()
+              for v in h.values()), f"group runs: {world['histories']}")
+    check(tf32_flags() == {"cudnn": False, "matmul": False},
+          f"phase 10 left TF32 on: {tf32_flags()}")
+    return launches
+
+
+def world_of_one(work: Path) -> None:
+    """The child of phase 10 (c), started by ``torch.distributed.run`` with
+    one process: join its NCCL group, then one host-fed and one
+    device-cache train step through the group against the same step without
+    it (on one activation pattern), a short ``run_training`` and
+    ``run_finetune`` through the group, and step times with and without
+    it. Writes ``world_of_one.json`` into ``work``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from lipsync_tpu_torch.models import LipSyncModel, ModelConfig
+    from lipsync_tpu_torch.models import seeded_state_dict
+    from lipsync_tpu_torch.parallel import mesh as mesh_lib
+    from lipsync_tpu_torch.training import finetune as finetune_mod
+    from lipsync_tpu_torch.training import steps
+    from lipsync_tpu_torch.training import train as train_mod
+    from lipsync_tpu_torch.training.data import BatchLoader, LipSyncDataset
+    from lipsync_tpu_torch.training.device_cache import DeviceDatasetCache
+    from lipsync_tpu_torch.utils import synthetic
+
+    from lipsync_tpu_torch.utils.device import disable_tf32
+
+    dev = mesh_lib.join_from_environment("cuda")
+    shard = mesh_lib.process_shard()
+    disable_tf32()  # the steps below run as run_training runs them
+    out = {"backend": dist.get_backend(), "world": shard.world,
+           "rank": shard.rank, "device": str(dev)}
+    # The cost of one small collective here: what every BatchNorm of a
+    # group step pays twice per forward it runs (once forward, once back).
+    x = torch.zeros(513, device=dev)
+    for _ in range(10):
+        dist.all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(x)
+    torch.cuda.synchronize()
+    out["all_reduce_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    cfg = ModelConfig()
+    corpus = synthetic.write_corpus(work / "corpus", n_clips=16,
+                                    n_frames=CORPUS_FRAMES,
+                                    crop_size=cfg.crop_size, seed=SEED,
+                                    device=dev)
+    dataset = LipSyncDataset(preprocessed_dir=corpus,
+                             video_frames=cfg.video_frames,
+                             audio_frames=cfg.audio_frames,
+                             uint8_visual=True, device=dev)
+    host = next(iter(BatchLoader(dataset, batch_size=4, shuffle=False,
+                                 train_mode_override=True)))
+    host = mesh_lib.pad_batch_to_multiple(host, shard.world)
+    cache = DeviceDatasetCache(dataset, mesh=shard, device=dev)
+    cached = next(iter(cache.batches(range(16), 4,
+                                     rng=np.random.RandomState(SEED))))
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    weights = seeded_state_dict(LipSyncModel(cfg0), SEED)
+    zero = conv_biases_before_batchnorm(LipSyncModel(cfg0))
+
+    def step_once(group, batch, tape, replay):
+        model = LipSyncModel(cfg0)
+        model.load_state_dict(weights)
+        model.to(dev)
+        state = steps.create_train_state(model, SGD1(model), SEED, group)
+        seen = {}
+        with activation_pattern(tape, replay, seen):
+            metrics = steps.make_train_step(steps.LossConfig())(
+                state, train_mod.to_device(batch, dev), shift=5)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: p.grad.detach().cpu() for n, p in
+                 model.named_parameters()},
+                {n: b.detach().cpu() for n, b in model.named_buffers()
+                 if "running" in n}, seen)
+
+    out["parity"] = {}
+    for feed, batch in (("host_fed", host), ("device_cache", cached)):
+        tape = []
+        alone = step_once(None, batch, tape, False)
+        grouped = step_once(shard, batch, tape, True)
+        grad_rel = {n: float((grouped[1][n] - g).abs().max()
+                             / g.abs().max())
+                    for n, g in alone[1].items() if n not in zero}
+        worst = sorted(((v, n) for n, v in grad_rel.items()),
+                       reverse=True)[:5]
+        out["parity"][feed] = {
+            "metric_rel": {k: abs(grouped[0][k] - v) / max(abs(v), 1e-6)
+                           for k, v in alone[0].items()},
+            "stat_rel_max": max(
+                float((grouped[2][n] - s).abs().max()
+                      / max(1.0, float(s.abs().max())))
+                for n, s in alone[2].items()),
+            "grad_rel_max": worst[0][0], "grad_rel_worst5": worst,
+            "replay": grouped[3], "zero_grads": len(zero)}
+
+    # Step times at batch 8 from the device cache, with and without the
+    # group, full width, fp32, TF32 off: median of 5 warm steps, in turns
+    # (group, none, none, group); then one profiled group step.
+    from lipsync_tpu_torch.training.optimizers import PhaseOptimizer
+
+    def stepper(group):
+        model = LipSyncModel(cfg).to(dev)
+        state = steps.create_train_state(
+            model, PhaseOptimizer(model.named_parameters(), 3, 1e-4, 1e-5),
+            SEED, group)
+        step = steps.make_train_step(steps.LossConfig())
+        batch = next(iter(cache.batches(range(16), 8,
+                                        rng=np.random.RandomState(SEED))))
+        return lambda: step(state, batch)
+
+    def step_ms(run):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[1:])
+
+    runs = {"group_of_one": stepper(shard), "no_group": stepper(None)}
+    out["step_ms_batch8"] = {k: [] for k in runs}
+    for name in ("group_of_one", "no_group", "no_group", "group_of_one"):
+        out["step_ms_batch8"][name].append(step_ms(runs[name]))
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        nccl = sum(e.self_device_time_total for e in kernels
+                   if "nccl" in e.key.lower()) / 1e3
+        out.setdefault("step_profile", {})[name] = {
+            "wall_ms": wall, "device_busy_ms": busy, "nccl_ms": nccl,
+            "device_kernels": sum(e.count for e in kernels),
+            "all_reduce_calls": sum(e.count for e in prof.key_averages()
+                                    if e.key == "c10d::allreduce_")}
+    del runs
+
+    geometry = ["--video-frames", str(cfg.video_frames),
+                "--crop-size", str(cfg.crop_size),
+                "--audio-frames", str(cfg.audio_frames)]
+    base = ["--preprocessed-dir", str(corpus), "--batch-size", "8",
+            "--max-steps-per-epoch", "2", *geometry]
+    out["histories"], out["seconds"], out["tf32_after"] = {}, {}, {}
+    out["peak_gib"] = {}
+    for name, entry, args in (
+            ("run_training", train_mod.run_training,
+             train_mod.build_argparser().parse_args(
+                 base + ["--output-dir", str(work / "w"), "--epochs", "1",
+                         "--device-cache"])),
+            ("run_finetune", finetune_mod.run_finetune,
+             finetune_mod.build_argparser().parse_args(
+                 base + ["--output-dir", str(work / "ft"), "--epochs", "1",
+                         "--checkpoint", str(work / "w" / "latest")]))):
+        tf32_on()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out["histories"][name] = entry(args, device=dev)
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["peak_gib"][name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["tf32_after"][name] = tf32_flags()
+    (work / "world_of_one.json").write_text(json.dumps(out))
+    mesh_lib.leave_group()
+
+
 def main() -> None:
     import torch
 
+    if sys.argv[1:2] == ["--world-of-one"]:  # phase 10's child
+        world_of_one(Path(sys.argv[2]))
+        return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available")
     if not (ROOT / "lipsync_tpu_torch" / "csrc").is_dir():
@@ -1765,8 +2257,6 @@ def main() -> None:
     from lipsync_tpu_torch.preprocessing.video import crop_track_on_device
     from lipsync_tpu_torch.utils import synthetic
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -1774,8 +2264,24 @@ def main() -> None:
     emit({"phase": "card", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks_of": peak_key,
-          "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
-                   "cudnn": torch.backends.cudnn.allow_tf32}})
+          "tf32_at_start": tf32_flags()})
+
+    # The script sets no precision switch itself: the entry points turn
+    # TF32 off (utils/device.disable_tf32), and every phase runs with what
+    # they set. load_engine is the first entry point called.
+    from lipsync_tpu_torch.inference.engine import load_engine
+
+    tf32_on()
+    small = ModelConfig(visual_feature_dim=64, audio_feature_dim=64,
+                        embed_dim=64, video_frames=8, crop_size=32,
+                        audio_frames=32)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(LipSyncModel(small).state_dict(), Path(tmp) / "w.pth")
+        load_engine(Path(tmp) / "w.pth", small, device=dev)
+    emit({"phase": "tf32_entry_points",
+          "after_load_engine": tf32_flags()})
+    check(tf32_flags() == {"cudnn": False, "matmul": False},
+          f"load_engine left TF32 on: {tf32_flags()}")
 
     # ── 2. build ──────────────────────────────────────────────────────
     t0 = time.perf_counter()
@@ -1960,10 +2466,11 @@ def main() -> None:
         return row
 
     # An odd shape with partial output tiles, the refinement's three half
-    # windows of clip S (phase 6) in their bucket of 4, the training
+    # windows of clip S (phase 6) in their bucket of 4 and in its halves on
+    # two shards (phase 10), the training
     # phase's validation batch (phase 7) and the serving phase's warmup and
     # coalesced buckets (phase 8).
-    for shape in ((2, 4, 15, 10, 3), (4, 16, 96, 96, 3),
+    for shape in ((2, 4, 15, 10, 3), (4, 16, 96, 96, 3), (2, 16, 96, 96, 3),
                   (VAL_CLIPS, 32, 96, 96, 3),
                   *((b, 32, 96, 96, 3) for b in K2_EXTRA_BATCHES)):
         video = torch.rand(*shape, generator=gen).to(dev)
@@ -2211,6 +2718,12 @@ def main() -> None:
         dev, cfg, weight_sets, requests, serve, eng32, engines["seeded"][1],
         track_inputs, plain_int8, lambda: kernel_inputs(seen))
 
+    # ── 10. data parallelism ──────────────────────────────────────────
+    torch.cuda.empty_cache()
+    dp_launches = data_parallel_phase(
+        dev, cfg, weight_sets["bn_calibrated"], requests, track_inputs,
+        lambda: kernel_inputs(seen))
+
     # Every input shape that the main runs gave a kernel was checked above.
     unchecked = {name: sorted(shapes - checked[name])
                  for name, shapes in seen.items()}
@@ -2220,7 +2733,7 @@ def main() -> None:
     check(not any(unchecked.values()),
           f"main-path kernel inputs not held against the twin: {unchecked}")
 
-    # ── 10. kernels ───────────────────────────────────────────────────
+    # ── 11. kernels ───────────────────────────────────────────────────
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
@@ -2236,6 +2749,9 @@ def main() -> None:
          "launches_training": training_launches["log_mel"],
          "launches_serving": serving_launches["log_mel"],
          "launches_options": option_launches["log_mel"],
+         "launches_data_parallel": dp_launches["log_mel"],
+         "launches_data_parallel_by_device":
+             dp_launches["by_device"]["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
@@ -2248,6 +2764,9 @@ def main() -> None:
          "launches_training": training_launches["hf_stem"],
          "launches_serving": serving_launches["hf_stem"],
          "launches_options": option_launches["hf_stem"],
+         "launches_data_parallel": dp_launches["hf_stem"],
+         "launches_data_parallel_by_device":
+             dp_launches["by_device"]["hf_stem"],
          # under the fold (one cuDNN conv in K2's place): checked to be 0
          "launches_fold": option_launches["hf_stem_fold"],
          "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
@@ -2260,6 +2779,9 @@ def main() -> None:
          "replaces": "lipsync_tpu/models/layers.py:140",
          "launches": option_launches["int8_conv"],
          "launches_per_forward": option_launches["int8_conv_per_forward"],
+         "launches_data_parallel": dp_launches["int8_conv"],
+         "launches_data_parallel_by_device":
+             dp_launches["by_device"]["int8_conv"],
          "shape": {k: k3m[k] for k in ("x", "w", "stride", "padding")},
          "max_abs_err": k3m["max_abs_err"], "ms": k3m["kernel_ms"],
          "plain_ms": k3m["plain_ms"], "bound_ms": k3m["bound_ms"],

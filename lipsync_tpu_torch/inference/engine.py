@@ -13,15 +13,31 @@ The JAX engine's single-device serving options, each off by default:
 gathers every window's features), ``quantized_int8`` (encoder convolutions
 int8 x int8 -> int32 through K3, ``ModelConfig.conv_lowering="int8"``) and
 ``fold_hf_stem`` (the HF stem's Laplacian composed into its conv1,
-``ModelConfig.hf_stem_fold``). Each loads the same state dict. ``mesh``
-(data parallelism) is not ported and raises.
+``ModelConfig.hf_stem_fold``). Each loads the same state dict.
+
+``mesh`` (data parallelism, ``parallel/mesh.py``) is a list of devices: the
+engine keeps one replica of the model per distinct device and splits every
+bucket, rounded up to a multiple of the mesh's size, into contiguous shards
+in device order, as the JAX engine's batch sharding does. The per-window
+track path uploads the crops to every device and shards the windows. Under
+shared encoding the track's frames shard instead, padded to a multiple of
+the mesh: each shard encodes its frames plus a halo of the visual
+encoder's temporal reach (``VisualEncoder.temporal_halo``) and keeps its
+own, which is the whole-track encode; the windows then shard over the
+gathered features. Under ``quantized_int8`` the shards run in lockstep, one
+thread each, so that every convolution's activation scale is the abs-max of
+the whole bucket (``parallel.mesh.Lockstep``).
+
+The engine turns TF32 off for the process (``utils/device.disable_tf32``):
+its fp32 stages run in fp32 on CUDA.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,8 +48,13 @@ from lipsync_tpu_torch.models.bridge import (
     variables_to_state_dict,
 )
 from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel, ModelConfig
+from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.training import checkpoints
-from lipsync_tpu_torch.utils.device import DeviceLike, get_device
+from lipsync_tpu_torch.utils.device import (
+    DeviceLike,
+    disable_tf32,
+    get_device,
+)
 from lipsync_tpu_torch.utils.weights import default_checkpoint
 
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
@@ -70,7 +91,8 @@ def _as_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 class ScoringEngine:
-    """Owns the model and its weights on one device."""
+    """Owns the model and its weights on one device, or a replica on each
+    device of ``mesh``."""
 
     def __init__(
         self,
@@ -78,7 +100,7 @@ class ScoringEngine:
         config: ModelConfig = ModelConfig(),
         calibrator: Optional[Calibrator] = None,
         use_bfloat16: Optional[bool] = None,
-        mesh: Optional[object] = None,
+        mesh: Optional[Sequence[DeviceLike]] = None,
         max_batch: int = 256,
         shared_visual_encoding: bool = False,
         quantized_int8: bool = False,
@@ -86,8 +108,13 @@ class ScoringEngine:
         device: DeviceLike = None,
     ):
         if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet")
-        self.device = get_device(device)
+            self.mesh: Optional[List[torch.device]] = [
+                get_device(d) for d in mesh]
+            self.device = self.mesh[0]
+        else:
+            self.mesh = None
+            self.device = get_device(device)
+        disable_tf32()
         if use_bfloat16 is None:
             use_bfloat16 = self.device.type == "cuda"
         dtype = torch.bfloat16 if use_bfloat16 else torch.float32
@@ -96,10 +123,14 @@ class ScoringEngine:
         if quantized_int8:
             config = dataclasses.replace(config, conv_lowering="int8")
         self.shared_visual_encoding = bool(shared_visual_encoding)
+        self.quantized_int8 = bool(quantized_int8)
         self.config = config
         self.model = LipSyncModel(config, dtype=dtype)
         self.model.load_state_dict(_as_state_dict(variables), strict=True)
         self.model.to(self.device).eval()
+        self._replicas = {self.device: self.model}
+        for d in mesh_lib.distinct(self.mesh or [])[1:]:
+            self._replicas[d] = copy.deepcopy(self.model).to(d)
         self.calibrator = calibrator or Calibrator()
         self.max_batch = int(max_batch)
         # Groups a streaming caller keeps enqueued before reading one back.
@@ -110,8 +141,48 @@ class ScoringEngine:
         """The loaded weights (the model's ``state_dict``), on the device."""
         return self.model.state_dict()
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+    @staticmethod
+    def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def _bucket(self, n: int) -> int:
+        """``n`` rounded up to its bucket, and on a mesh to a multiple of
+        the mesh's size (at least one row per shard)."""
+        bucket = _bucket_batch(n)
+        if self.mesh is not None:
+            k = len(self.mesh)
+            bucket = mesh_lib.pad_to_multiple(max(bucket, k), k)
+        return bucket
+
+    def _run_shards(self, calls: List[Callable[[], Any]]) -> List[Any]:
+        """Run one call per shard under ``torch.inference_mode``: in
+        lockstep threads for the int8 lowering (its scales reduce over
+        every shard), in order otherwise (CUDA launches are asynchronous,
+        so the devices of a mesh still overlap)."""
+
+        def in_mode(call):
+            def run():
+                with torch.inference_mode():
+                    return call()
+            return run
+
+        calls = [in_mode(c) for c in calls]
+        if self.quantized_int8 and len(calls) > 1:
+            return mesh_lib.Lockstep(len(calls)).run(calls)
+        return [c() for c in calls]
+
+    def _over_rows(self, n: int, fn) -> torch.Tensor:
+        """``fn(model, device, lo, hi)`` over the mesh's contiguous shards
+        of ``n`` rows (all of them on one device), concatenated on the
+        first device."""
+        if self.mesh is None:
+            return self._run_shards([lambda: fn(self.model, self.device,
+                                                0, n)])[0]
+        bounds = mesh_lib.shard_bounds(n, len(self.mesh))
+        outs = self._run_shards([
+            (lambda d=d, lo=lo, hi=hi: fn(self._replicas[d], d, lo, hi))
+            for d, (lo, hi) in zip(self.mesh, bounds)])
+        return torch.cat([o.to(self.device) for o in outs])
 
     # ------------------------------------------------------------------
     def dispatch_logits(self, visual: np.ndarray,
@@ -122,14 +193,17 @@ class ScoringEngine:
         n = visual.shape[0]
         if audio.ndim == 3:
             audio = audio[..., None]  # (N, F, T_a, 1)
-        bucket = _bucket_batch(n)
+        bucket = self._bucket(n)
         visual, audio = _pad_rows(visual, bucket), _pad_rows(audio, bucket)
         if visual.dtype != np.uint8:
             visual = _to_uint8(visual)
-        v = self._upload(visual)
-        a = self._upload(audio.astype(np.float32, copy=False))
-        with torch.inference_mode():
-            return self.model(v.float() / 255.0, a)
+        audio = audio.astype(np.float32, copy=False)
+
+        def run(model, dev, lo, hi):
+            v = self._upload(visual[lo:hi], dev)
+            return model(v.float() / 255.0, self._upload(audio[lo:hi], dev))
+
+        return self._over_rows(bucket, run)
 
     @staticmethod
     def _read_back(groups) -> np.ndarray:
@@ -187,9 +261,10 @@ class ScoringEngine:
         audio_windows: np.ndarray,
     ) -> torch.Tensor:
         """Upload one group's crops (uint8, padded to ``video_frames * 2^k``
-        frames with the last frame) and starts, gather the windows on the
-        device and run the forward; returns the device logits without
-        waiting for them."""
+        frames with the last frame, and on a shared-encoding mesh to a
+        multiple of its size) and starts, gather the windows on the device
+        and run the forward; returns the device logits without waiting for
+        them."""
         w = len(starts)
         chunk = self.config.video_frames
         if audio_windows.ndim == 3:
@@ -200,30 +275,77 @@ class ScoringEngine:
         n_pad = chunk
         while n_pad < n_needed:
             n_pad *= 2
+        if self.mesh is not None and self.shared_visual_encoding:
+            n_pad = mesh_lib.pad_to_multiple(n_pad, len(self.mesh))
         crops = _pad_rows(crops, n_pad)
-        bucket = _bucket_batch(w)
+        bucket = self._bucket(w)
         starts_arr = np.zeros(bucket, np.int64)
         starts_arr[:w] = np.asarray(starts, np.int64)
-        audio_windows = _pad_rows(audio_windows, bucket)
-        crops_d = self._upload(crops)
-        starts_d = self._upload(starts_arr)
-        audio_d = self._upload(audio_windows.astype(np.float32, copy=False))
-        with torch.inference_mode():
-            idx = starts_d[:, None] + torch.arange(chunk, device=self.device)
-            windows = crops_d[idx].float() / 255.0
-            if not self.shared_visual_encoding:
-                return self.model(windows, audio_d)
-            # Shared-track encoding: the visual encoder has no temporal
-            # stride, so the whole padded track is encoded once and every
-            # window gathers its frames' features. As in the JAX engine,
-            # interior windows then see real neighbour frames in the
-            # temporal convolutions where the per-window path pads with
-            # zeros; a one-window track is the per-window function.
-            v_feat, v_map = self.model.encode_visual(
-                crops_d.float()[None] / 255.0)
-            v_map = v_map[0][idx] if v_map is not None else None
-            return self.model.score_encoded(v_feat[0][idx], v_map, windows,
-                                            audio_d)
+        audio_windows = _pad_rows(audio_windows, bucket).astype(
+            np.float32, copy=False)
+        on = {d: self._upload(crops, d) for d in self._replicas}
+
+        def window_idx(dev, lo, hi):
+            return (self._upload(starts_arr[lo:hi], dev)[:, None]
+                    + torch.arange(chunk, device=dev))
+
+        if not self.shared_visual_encoding:
+            def run(model, dev, lo, hi):
+                windows = on[dev][window_idx(dev, lo, hi)].float() / 255.0
+                return model(windows, self._upload(audio_windows[lo:hi], dev))
+
+            return self._over_rows(bucket, run)
+        # Shared-track encoding: the visual encoder has no temporal stride,
+        # so the whole padded track is encoded once and every window
+        # gathers its frames' features. As in the JAX engine, interior
+        # windows then see real neighbour frames in the temporal
+        # convolutions where the per-window path pads with zeros; a
+        # one-window track is the per-window function.
+        v_feat, v_map = self._encode_track(on, n_pad)
+        feats = {d: (v_feat.to(d), None if v_map is None else v_map.to(d))
+                 for d in self._replicas}
+
+        def score(model, dev, lo, hi):
+            idx = window_idx(dev, lo, hi)
+            vf, vm = feats[dev]
+            return model.score_encoded(
+                vf[idx], None if vm is None else vm[idx],
+                on[dev][idx].float() / 255.0,
+                self._upload(audio_windows[lo:hi], dev))
+
+        return self._over_rows(bucket, score)
+
+    def _encode_track(self, on: Dict[torch.device, torch.Tensor],
+                      n_pad: int):
+        """The visual encoder over the whole padded track: ``(n_pad, D)``
+        pooled features and ``(n_pad, H', W', D)`` maps (None without the
+        artifact branch), on the first device. On a mesh each shard
+        encodes its frames plus ``temporal_halo`` neighbours each side
+        (the track's own ends keep their zero padding) and keeps its
+        own."""
+        if self.mesh is None:
+            feat, fmap = self._run_shards([lambda: self.model.encode_visual(
+                on[self.device].float()[None] / 255.0)])[0]
+            return feat[0], None if fmap is None else fmap[0]
+        halo = self.model.visual_encoder.temporal_halo
+
+        def encode(d, lo, hi):
+            a, b = max(0, lo - halo), min(n_pad, hi + halo)
+            with mesh_lib.owning_frames(lo - a, hi - a):
+                feat, fmap = self._replicas[d].encode_visual(
+                    on[d][a:b].float()[None] / 255.0)
+            keep = slice(lo - a, hi - a)
+            return feat[0, keep], None if fmap is None else fmap[0, keep]
+
+        parts = self._run_shards([
+            (lambda d=d, lo=lo, hi=hi: encode(d, lo, hi))
+            for d, (lo, hi) in zip(self.mesh,
+                                   mesh_lib.shard_bounds(n_pad,
+                                                         len(self.mesh)))])
+        feat = torch.cat([f.to(self.device) for f, _ in parts])
+        if parts[0][1] is None:
+            return feat, None
+        return feat, torch.cat([m.to(self.device) for _, m in parts])
 
     def score_track_probs(self, crops, starts, audio_windows) -> np.ndarray:
         return self.calibrator(

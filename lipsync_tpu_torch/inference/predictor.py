@@ -27,6 +27,7 @@ from lipsync_tpu_torch.inference.calibration import Calibrator
 from lipsync_tpu_torch.inference.engine import ScoringEngine, load_engine
 from lipsync_tpu_torch.inference.pipelined import score_long_video_pipelined
 from lipsync_tpu_torch.models import ModelConfig
+from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.preprocessing import ingest
 from lipsync_tpu_torch.preprocessing.audio import (
     detect_voice_activity,
@@ -99,7 +100,8 @@ class PredictorConfig:
     # independent-window numerics (engine.py track_forward_shared).
     shared_visual_encoding: bool = False
     # Shard the window batch axis over the first N devices (0/1 = single
-    # device). Not ported yet: a value above 1 raises NotImplementedError.
+    # device; fewer when fewer exist; on the CPU the host N times), as the
+    # JAX package's make_mesh(N) does (parallel/mesh.py).
     data_parallel_devices: int = 0
     # Quantized serving: encoder convs int8 x int8 -> int32 on K3
     # (models/layers.int8_conv); per-tensor activation scales make a
@@ -196,13 +198,16 @@ class Predictor:
                     "model_path or engine required (no committed flagship "
                     "checkpoint found at weights/flagship)"
                 )
+            mesh = None
             if config.data_parallel_devices > 1:
-                raise NotImplementedError(
-                    "data_parallel_devices is not ported yet"
-                )
+                # The first n devices of the predictor's kind, fewer if
+                # fewer exist (the host n times on the CPU).
+                mesh = mesh_lib.make_mesh(config.data_parallel_devices,
+                                          device_type=self.device.type)
             self.engine = load_engine(
                 Path(model_path), model_config, calibrator=calibrator,
                 shared_visual_encoding=config.shared_visual_encoding,
+                mesh=mesh,
                 quantized_int8=config.quantized_int8,
                 fold_hf_stem=config.fold_hf_stem,
                 device=self.device,

@@ -12,11 +12,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from lipsync_tpu_torch.models.layers import (
     ConvBNAct,
     ResidualBlockND,
+    dropout,
     max_pool_same,
 )
 
@@ -44,5 +44,5 @@ class AudioEncoder(nn.Module):
         out = self.stem(x.permute(0, 3, 1, 2))  # (B, 1, F, T)
         out = max_pool_same(out, (3, 3), (2, 2), ((1, 1), (1, 1)))
         out = self.layer4(self.layer3(self.layer2(self.layer1(out))))
-        out = F.dropout(out, self.dropout, self.training)
+        out = dropout(out, self.dropout, self.training)
         return out.mean(dim=2).transpose(1, 2)  # (B, T', D)

@@ -9,11 +9,19 @@ the package's channels-last layouts at their boundary. Every BatchNorm is
 :class:`BatchNorm`: eps 1e-5, momentum 0.1 (torch's convention, flax's
 0.9), and flax's running-variance rule. ``ConvBNAct(lowering="int8")`` runs
 its convolution through :func:`int8_conv` (K3) with the same parameters.
+
+Data parallelism keeps the global batch's numbers (the JAX package's mesh
+runs one program over it): a BatchNorm given a process group normalises
+with the statistics of every rank's rows (:meth:`BatchNorm.forward`);
+inside :func:`batch_shard` dropout draws its mask for the global batch
+and keeps this rank's rows; and ``int8_conv``'s activation scale is the
+abs-max over every in-process shard (``parallel.mesh.all_max``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -21,6 +29,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from lipsync_tpu_torch.ops.kernels.int8_conv import int8_conv_int32
+from lipsync_tpu_torch.parallel import mesh as mesh_lib
+from lipsync_tpu_torch.parallel.collectives import all_gather_rows
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 
@@ -39,20 +49,57 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     ``((n-1) new + (1-m) old) / n`` turns that into ``(1-m) old + m var``
     without another pass over the activations. While ``update_stats`` is
     False a training-mode forward normalises with the batch statistics and
-    leaves every buffer as it was (see :func:`frozen_batch_stats`)."""
+    leaves every buffer as it was (see :func:`frozen_batch_stats`).
+
+    With ``process_group`` set (:func:`set_process_group`), a
+    training-mode forward uses the statistics of the global batch, every
+    rank's rows: each rank's count, mean and biased variance (two passes
+    over its rows) are gathered over the group with their gradients
+    (``parallel.collectives.all_gather_rows``, one collective forward and
+    one backward) and combined as ``mean = sum n_i mean_i / N`` and
+    ``var = sum n_i (var_i + (mean_i - mean)^2) / N``. Every rank updates
+    its buffers with the same global mean and biased variance. Eval mode
+    runs no collective."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum=0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.update_stats = True
+        self.process_group = None
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.dim() < 2:
             raise ValueError(f"expected (N, C, ...), got {tuple(x.shape)}")
 
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        c = x.shape[1]
+        var_i, mean_i = torch.var_mean(x, dims, correction=0)
+        n_i = x.new_full((1,), x.numel() // c)
+        rows = all_gather_rows(torch.cat([n_i, mean_i, var_i])[None])
+        n, means, variances = rows[:, :1].detach(), rows[:, 1:c + 1], \
+            rows[:, c + 1:]
+        weight = n / n.sum()
+        mean = (weight * means).sum(0)
+        var = (weight * (variances + (means - mean).square())).sum(0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = torch.addcmul(self.bias.view(shape), x - mean.view(shape),
+                            scale.view(shape))
+        if self.update_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (self.momentum if self.momentum is not None
+                     else 1.0 / float(self.num_batches_tracked))
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var, alpha=m)
+        return out
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._global_forward(x)
         if not self.update_stats:
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
                                 0.0, self.eps)
@@ -70,6 +117,60 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
 def batch_norms(model: nn.Module) -> Iterator[BatchNorm]:
     return (m for m in model.modules() if isinstance(m, BatchNorm))
+
+
+def set_process_group(model: nn.Module, group) -> None:
+    """Make every BatchNorm of ``model`` use the global batch of ``group``
+    in training mode (None: this process's batch)."""
+    for bn in batch_norms(model):
+        bn.process_group = group
+
+
+_shard = threading.local()
+
+
+@contextlib.contextmanager
+def batch_shard(shard: Optional[mesh_lib.ProcessShard]):
+    """While open, the calling thread's training forwards run on rank
+    ``shard.rank``'s block of a global batch of ``shard.world`` equal
+    blocks: :func:`dropout` draws its mask for the global batch, as one
+    process would, and keeps this block's rows. Every rank must hold the
+    same RNG state."""
+    prev = getattr(_shard, "value", None)
+    _shard.value = shard
+    try:
+        yield
+    finally:
+        _shard.value = prev
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            feature: bool = False) -> torch.Tensor:
+    """``F.dropout`` (``feature``: ``F.dropout3d``'s whole-channel masks of
+    a 5-d input). Inside :func:`batch_shard` the mask is the global batch's
+    rows of this shard: the mask that one process draws for the whole
+    batch, so the sharded step computes the same function."""
+    fn = F.dropout3d if feature else F.dropout
+    shard = getattr(_shard, "value", None)
+    if not training or p == 0.0 or shard is None or shard.world == 1:
+        return fn(x, p, training)
+    b = x.shape[0]
+    if feature:  # torch draws one contiguous (B, C, 1, ...) noise tensor
+        ones = x.new_ones((b * shard.world, x.shape[1]) + (1,) * (x.dim() - 2))
+    else:  # torch draws noise laid out in memory as ``x`` is
+        order = sorted(range(x.dim()), key=lambda d: (-x.stride(d), d))
+        shape = (b * shard.world,) + tuple(x.shape[1:])
+        ones = x.new_ones([shape[d] for d in order]).permute(
+            [order.index(d) for d in range(x.dim())])
+    mask = fn(ones, p, True)
+    return x * mask[shard.rank * b:(shard.rank + 1) * b]
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` through :func:`dropout`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.p, self.training)
 
 
 @contextlib.contextmanager
@@ -124,7 +225,8 @@ def int8_conv(
     dynamic quantization of one 2-d or 3-d convolution (channels-first
     ``x``, torch weight layout). Weights quantize per output channel
     (``max|w| / 127`` as a product with ``_INV_127``, floored at 1e-12),
-    activations per *tensor* over the whole batch, symmetric; the
+    activations per *tensor* over the whole batch (every shard of an
+    in-process mesh), symmetric; the
     convolution runs int8 x int8 -> int32 (K3);
     the result dequantizes as ``y * (x_scale * w_scale)`` plus the bias, in
     fp32, and comes back in ``x``'s dtype. Because the activation scale is
@@ -134,7 +236,12 @@ def int8_conv(
     w_scale = torch.clamp(
         w32.abs().amax(dim=tuple(range(1, w32.dim()))) * _INV_127,
         min=1e-12)
-    x_scale = torch.clamp(x32.abs().max() * _INV_127, min=1e-12)
+    # Over every in-process shard of the batch (one value outside a mesh);
+    # a frame-sharded encode counts only the frames each shard owns.
+    core = mesh_lib.frame_core()
+    owned = x32 if core is None else x32[:, :, core[0]:core[1]]
+    x_scale = torch.clamp(mesh_lib.all_max(owned.abs().max()) * _INV_127,
+                          min=1e-12)
     w_q = quantize_int8(w32, w_scale.view(-1, *[1] * (w32.dim() - 1)))
     x_q = quantize_int8(x32, x_scale)
     last = lambda t: t.movedim(1, -1).contiguous()  # noqa: E731
@@ -263,7 +370,7 @@ class MultiHeadAttention(nn.Module):
         q, k, v = split(q), split(k), split(v)
         logits = (q @ k.transpose(-2, -1)) * (1.0 / (d // h) ** 0.5)
         weights = torch.softmax(logits.float(), dim=-1).to(v.dtype)
-        weights = F.dropout(weights, self.dropout, self.training)
+        weights = dropout(weights, self.dropout, self.training)
         out = (weights @ v).transpose(1, 2)
         return self.out_proj(out.reshape(out.shape[0], out.shape[1], d))
 
@@ -281,7 +388,7 @@ class TransformerEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(ff_dim, dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm1(x)

@@ -21,12 +21,12 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from lipsync_tpu_torch.models.layers import (
     ConvBNAct,
     ResidualBlockND,
     compute_in,
+    dropout,
     max_pool_same,
 )
 
@@ -46,6 +46,16 @@ class VisualEncoder(nn.Module):
         self.layer4 = ResidualBlockND(c * 4, feature_dim, (3, 3, 3), (1, 2, 2),
                                       low)
 
+    @property
+    def temporal_halo(self) -> int:
+        """How many frames on each side of a frame its outputs depend on:
+        the temporal half-widths of the main path's convolutions (none of
+        them strides in time; the shortcuts are 1x1x1)."""
+        convs = [self.stem[0]]
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            convs += [layer.conv1[0], layer.conv2[0]]
+        return sum((c.kernel_size[0] - 1) // 2 for c in convs)
+
     def forward(self, x: torch.Tensor, return_map: bool = False,
                 dtype: Optional[torch.dtype] = None):
         if x.dim() != 5:
@@ -58,7 +68,7 @@ class VisualEncoder(nn.Module):
         out = self.layer2(self.layer1(out)).to(dtype or x.dtype)
         with compute_in(out):
             out = self.layer4(self.layer3(out))
-            out = F.dropout3d(out, self.dropout, self.training)
+            out = dropout(out, self.dropout, self.training, feature=True)
         pooled = out.float().mean(dim=(3, 4)).transpose(1, 2)  # (B, T, D)
         if return_map:
             return pooled, out.permute(0, 2, 3, 4, 1)  # (B, T, H', W', D)

@@ -23,6 +23,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lipsync_tpu_torch_kernels"
 KERNELS = ("mel", "hf_stem", "int8_conv")
+# Guards the wrappers' launch counts: the shards of an int8 mesh launch from
+# one thread each.
+COUNT_LOCK = threading.Lock()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

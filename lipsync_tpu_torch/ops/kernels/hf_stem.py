@@ -17,7 +17,7 @@ runs only for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,8 +29,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 K_STEPS = 12  # conv1's K = 3 frames x 32 (27 taps + 5 zero rows), by 8
 TILE = 16     # output tile edge of one block
 
-# Launches of the CUDA kernel in this process (the CPU twin does not count).
+# Launches of the CUDA kernel in this process (the CPU twin does not count),
+# in all and by device.
 launches = 0
+launches_by_device: Dict[str, int] = {}
 
 
 def out_size(n: int) -> int:
@@ -189,7 +191,10 @@ def hf_stem(
         )
     if err != 0:
         raise RuntimeError(f"hf_stem kernel launch failed: cudaError {err}")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
+        key = str(video.device)
+        launches_by_device[key] = launches_by_device.get(key, 0) + 1
     return out
 
 

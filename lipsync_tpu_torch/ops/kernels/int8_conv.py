@@ -18,7 +18,7 @@ Layouts are channels-last: activations ``(N, [D,] H, W, C_in)``, weights
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +27,10 @@ from lipsync_tpu_torch.ops.kernels import build
 
 K_STEP = 32  # the kernel's K per step; weights are zero-padded to it
 
-# Launches of the CUDA kernel in this process (the CPU twin does not count).
+# Launches of the CUDA kernel in this process (the CPU twin does not count),
+# in all and by device.
 launches = 0
+launches_by_device: Dict[str, int] = {}
 
 
 def out_size(n: int, k: int, s: int, p: int) -> int:
@@ -117,7 +119,10 @@ def int8_conv_int32(x: torch.Tensor, w: torch.Tensor,
             kd, kh, kw, *stride, *padding, od, oh, ow, cout, kp, vec, stream)
     if err != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: cudaError {err}")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
+        key = str(x.device)
+        launches_by_device[key] = launches_by_device.get(key, 0) + 1
     return out[:, 0] if nd == 2 else out
 
 

@@ -21,8 +21,10 @@ from lipsync_tpu_torch.ops.mel import hann_window, mel_filterbank
 
 SR, N_FFT, HOP, N_MELS = 16000, 400, 160, 80
 
-# Launches of the CUDA kernel in this process (the CPU twin does not count).
+# Launches of the CUDA kernel in this process (the CPU twin does not count),
+# in all and by device.
 launches = 0
+launches_by_device: Dict[str, int] = {}
 
 _tables: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
 _kernel_tables: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
@@ -134,7 +136,10 @@ def log_mel_db(y: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"log_mel kernel launch failed: cudaError {err}")
-    launches += 1
+    with build.COUNT_LOCK:
+        launches += 1
+        key = str(y.device)
+        launches_by_device[key] = launches_by_device.get(key, 0) + 1
     return out
 
 

@@ -2,11 +2,12 @@
 
 Counterpart of ``preprocessing/face_detection.py`` in the JAX package. The
 reference's ladder is MediaPipe FaceMesh, MediaPipe FaceDetection, the
-OpenCV Haar cascades, then a centre crop. The two MediaPipe tiers are not
-ported: they raise ``ImportError``, as the JAX package's do without the
-``mediapipe`` wheel. The cascade tier (native evaluator,
-``preprocessing/haar.py``), lip-refined, is the default host detector; a
-scripted backend lets tests and measurements run without any detector.
+OpenCV Haar cascades, then a centre crop. The two MediaPipe tiers run
+where the ``mediapipe`` wheel imports and raise ``ImportError`` otherwise,
+as the JAX package's do; without the wheel the cascade tier (native
+evaluator, ``preprocessing/haar.py``), lip-refined, is the default host
+detector. A scripted backend lets tests and measurements run without any
+detector.
 
 Backends return MOUTH bounding boxes only: cropping and resizing happen
 afterwards in one batched call on the device (``ops/image.py``).
@@ -243,28 +244,110 @@ class CascadeDetector:
         return out
 
 
-class _NotPortedTier:
-    """A MediaPipe tier of the reference's ladder. Not ported: no machine
-    that runs the port has the ``mediapipe`` wheel to test it against, so
-    it raises ``ImportError`` as the JAX package's tier does without the
-    wheel, and the ladder starts at the cascades."""
+class MediaPipeDetector:
+    """MediaPipe FaceMesh tier (face_detection.py:428-449): the extremes of
+    22 lip landmarks padded by 20 px each side and clamped to the frame.
+    Raises ``ImportError`` when the ``mediapipe`` wheel is absent.
 
-    name = "mediapipe"
-
-    def __init__(self, *args, **kwargs):
-        raise ImportError(f"the {self.name} tier is not ported")
-
-
-class MediaPipeDetector(_NotPortedTier):
-    """MediaPipe FaceMesh tier (face_detection.py:428-449)."""
+    FaceMesh runs with ``static_image_mode=False`` and so carries tracking
+    state from frame to frame: each thread that calls :meth:`detect` gets
+    its own FaceMesh, built with the same arguments (the JAX package shares
+    one instance)."""
 
     name = "facemesh"
+    # Outer + inner lip landmark indices (face_detection.py:101-124).
+    mouth_landmarks = [
+        61, 146, 91, 181, 84, 17, 314, 405, 320, 307, 375, 321,
+        78, 95, 88, 178, 87, 14, 317, 402, 318, 324,
+    ]
+
+    def __init__(
+        self,
+        max_num_faces: int = 5,
+        min_detection_confidence: float = 0.3,
+        min_tracking_confidence: float = 0.3,
+    ):
+        import mediapipe as mp  # optional dependency
+
+        self.max_num_faces = max_num_faces
+        self._kwargs = dict(
+            static_image_mode=False,
+            max_num_faces=max_num_faces,
+            refine_landmarks=True,
+            min_detection_confidence=min_detection_confidence,
+            min_tracking_confidence=min_tracking_confidence,
+        )
+        self._make = mp.solutions.face_mesh.FaceMesh
+        self._local = threading.local()
+        self._local.mesh = self._make(**self._kwargs)
+
+    def _mesh(self):
+        mesh = getattr(self._local, "mesh", None)
+        if mesh is None:
+            mesh = self._local.mesh = self._make(**self._kwargs)
+        return mesh
+
+    def detect(self, frame: np.ndarray) -> List[Detection]:
+        h, w = frame.shape[:2]
+        results = self._mesh().process(frame)
+        if not results or not results.multi_face_landmarks:
+            return []
+        out = []
+        for face in results.multi_face_landmarks:
+            pts = np.array(
+                [[lm.x * w, lm.y * h] for lm in face.landmark], np.float32
+            )
+            mouth = pts[self.mouth_landmarks]
+            x_min = max(0, int(mouth[:, 0].min()) - 20)
+            x_max = min(w, int(mouth[:, 0].max()) + 20)
+            y_min = max(0, int(mouth[:, 1].min()) - 20)
+            y_max = min(h, int(mouth[:, 1].max()) + 20)
+            out.append(Detection(bbox=(x_min, y_min, x_max, y_max),
+                                 detector=self.name))
+        return out
 
 
-class MediaPipeFaceDetectionDetector(_NotPortedTier):
-    """MediaPipe FaceDetection tier (face_detection.py:330-385)."""
+class MediaPipeFaceDetectionDetector:
+    """MediaPipe FaceDetection tier (face_detection.py:330-385): face boxes
+    mapped to mouth boxes with the cascade's heuristic
+    (:func:`face_bbox_to_mouth_bbox`). ``model_selection=1`` is the
+    full-range model. Raises ``ImportError`` when the ``mediapipe`` wheel
+    is absent."""
 
     name = "facedetection"
+
+    def __init__(
+        self,
+        max_num_faces: int = 5,
+        min_detection_confidence: float = 0.3,
+        model_selection: int = 1,
+    ):
+        import mediapipe as mp  # optional dependency
+
+        self.max_num_faces = max_num_faces
+        self._detector = mp.solutions.face_detection.FaceDetection(
+            model_selection=model_selection,
+            min_detection_confidence=min_detection_confidence,
+        )
+
+    def detect(self, frame: np.ndarray) -> List[Detection]:
+        h, w = frame.shape[:2]
+        results = self._detector.process(frame)
+        if not results or not results.detections:
+            return []
+        out: List[Detection] = []
+        for det in results.detections[: self.max_num_faces]:
+            rel = det.location_data.relative_bounding_box
+            fx, fy = int(rel.xmin * w), int(rel.ymin * h)
+            fw, fh = int(rel.width * w), int(rel.height * h)
+            if fw < 4 or fh < 4:
+                continue
+            score = float(det.score[0]) if det.score else 1.0
+            mouth = face_bbox_to_mouth_bbox(fx, fy, fw, fh, w, h)
+            if mouth[2] - mouth[0] < 4 or mouth[3] - mouth[1] < 4:
+                continue
+            out.append(Detection(bbox=mouth, detector=self.name, score=score))
+        return out
 
 
 def _normalized(x: np.ndarray) -> np.ndarray:
@@ -465,8 +548,9 @@ _default_backend: Optional[FaceDetectorBackend] = None
 def get_default_backend(
     max_num_faces: int = 5, lip_refine: bool = True
 ) -> FaceDetectorBackend:
-    """Lip-localized cascades (cached): the reference's ladder without its
-    MediaPipe tiers, which are not ported (:class:`MediaPipeDetector`).
+    """The reference's ladder (cached): the two MediaPipe tiers where the
+    wheel imports, then the lip-localized cascades; a
+    :class:`ChainedDetector` when there is more than one tier.
 
     The cascade tier emits face-heuristic mouth boxes; a lip-localization
     wrapper recovers landmark-tier crop precision without the mediapipe
@@ -479,6 +563,12 @@ def get_default_backend(
     global _default_backend
     if _default_backend is not None:
         return _default_backend
+    tiers: List[FaceDetectorBackend] = []
+    for tier in (MediaPipeDetector, MediaPipeFaceDetectionDetector):
+        try:
+            tiers.append(tier(max_num_faces=max_num_faces))
+        except ImportError:
+            pass
     cascade: FaceDetectorBackend = CascadeDetector(max_num_faces=max_num_faces)
     if lip_refine:
         localizer = None
@@ -496,7 +586,8 @@ def get_default_backend(
             cascade = LearnedLipBackend(cascade, localizer)
         else:
             cascade = LipRefinerBackend(cascade)
-    _default_backend = cascade
+    tiers.append(cascade)
+    _default_backend = ChainedDetector(tiers) if len(tiers) > 1 else tiers[0]
     return _default_backend
 
 

@@ -76,9 +76,9 @@ def crop_mouth_uint8(
 
     The pipelined long path crops frame by frame as the tracker finalizes
     slots. Bilinear with half-pixel centres, clamped at the crop boundary
-    (the cv2.INTER_LINEAR convention of :func:`crop_resize_normalize`), in
-    numpy. The JAX package calls cv2 here when it is importable; this is
-    its numpy branch, within one uint8 step of cv2.
+    (the cv2.INTER_LINEAR convention of :func:`crop_resize_normalize`):
+    ``cv2.resize`` where cv2 imports, as in the JAX package, else numpy,
+    within one uint8 step of cv2.
     """
     h, w = frame.shape[:2]
     x1 = max(0, min(int(box[0]), w - 1))
@@ -86,6 +86,16 @@ def crop_mouth_uint8(
     x2 = max(x1 + 1, min(int(box[2]), w))
     y2 = max(y1 + 1, min(int(box[3]), h))
     region = frame[y1:y2, x1:x2]
+    try:
+        import cv2
+    except ImportError:
+        return _resize_bilinear_uint8(region, out_size)
+    return cv2.resize(region, (out_size, out_size),
+                      interpolation=cv2.INTER_LINEAR)
+
+
+def _resize_bilinear_uint8(region: np.ndarray, out_size: int) -> np.ndarray:
+    """The numpy branch of :func:`crop_mouth_uint8`."""
     rh, rw = region.shape[:2]
     u = (np.arange(out_size, dtype=np.float32) + 0.5)
     sx = np.clip(u / out_size * rw - 0.5, 0, rw - 1)

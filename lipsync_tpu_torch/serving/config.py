@@ -61,7 +61,8 @@ class Settings(Model):
     # Encode each track once and gather per-window visual features
     # (PredictorConfig.shared_visual_encoding).
     shared_visual_encoding: bool = False
-    # Data parallelism over N cards: not ported (a value above 1 raises).
+    # Shard every scoring batch over the first N devices
+    # (PredictorConfig.data_parallel_devices).
     data_parallel_devices: int = 0
     # int8 encoder convolutions on K3 (PredictorConfig.quantized_int8).
     quantized_int8: bool = False

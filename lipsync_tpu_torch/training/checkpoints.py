@@ -7,6 +7,9 @@ reference checkpoint's parameter names, so ``torch.load`` + the reference
 model, the JAX package's ``load_torch_checkpoint`` and the port's
 ``load_engine`` all read it) and the same ``metadata.json`` sidecar
 (epoch, phase, losses, input geometry, ``f1_threshold``...).
+
+In a data-parallel group every rank holds the same weights: rank 0 writes,
+and every rank waits at a barrier until the directory is complete.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+
+from lipsync_tpu_torch.parallel import mesh as mesh_lib
 
 WEIGHTS_FILE = "model.pth"
 
@@ -31,15 +36,19 @@ def save_checkpoint(
     metadata: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Replace ``path`` with a checkpoint directory: ``model.pth`` (CPU
-    copies of ``state_dict``) + ``metadata.json``."""
-    path = Path(path)
-    if path.exists():
-        shutil.rmtree(path)
-    path.mkdir(parents=True)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
-               path / WEIGHTS_FILE)
-    if metadata is not None:
-        (path / "metadata.json").write_text(json.dumps(metadata, indent=2))
+    copies of ``state_dict``) + ``metadata.json``. In a process group only
+    rank 0 writes, and every rank returns once it has."""
+    if mesh_lib.rank() == 0:
+        path = Path(path)
+        if path.exists():
+            shutil.rmtree(path)
+        path.mkdir(parents=True)
+        torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+                   path / WEIGHTS_FILE)
+        if metadata is not None:
+            (path / "metadata.json").write_text(
+                json.dumps(metadata, indent=2))
+    mesh_lib.barrier()
 
 
 def load_checkpoint(path: Path) -> Dict[str, torch.Tensor]:

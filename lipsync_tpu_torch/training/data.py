@@ -231,11 +231,26 @@ class Augmentations:
 
 
 def _rotate_clip(visual: np.ndarray, angle: float) -> np.ndarray:
-    from scipy.ndimage import rotate
+    """Rotate every frame by ``angle`` degrees about the centre, reflecting
+    at the border: ``cv2.warpAffine`` where cv2 imports, as the JAX package
+    does, else ``scipy.ndimage.rotate`` (the same rotation, with another
+    border reflection and interpolation)."""
+    try:
+        import cv2
+    except ImportError:
+        from scipy.ndimage import rotate
 
-    return rotate(
-        visual, angle, axes=(2, 1), reshape=False, mode="reflect", order=1
-    ).astype(visual.dtype)
+        return rotate(
+            visual, angle, axes=(2, 1), reshape=False, mode="reflect",
+            order=1,
+        ).astype(visual.dtype)
+    t, h, w, _ = visual.shape
+    m = cv2.getRotationMatrix2D((w / 2, h / 2), angle, 1.0)
+    out = np.empty_like(visual)
+    for i in range(t):
+        out[i] = cv2.warpAffine(visual[i], m, (w, h),
+                                borderMode=cv2.BORDER_REFLECT)
+    return out
 
 
 class LipSyncDataset:

@@ -19,6 +19,12 @@ for full-length clips and reproduces its tail padding for short ones:
   ``linspace`` index table; audio is tail-padded with its last column at
   build time, which equals the host sampler's pad for windows that overrun
   the clip.
+
+In a data-parallel group (``mesh``, this process's ``ProcessShard``) the
+corpus is replicated: every rank uploads all of it, as the JAX package
+replicates the cache over its mesh, and draws the same global batches. A
+train batch is then gathered sharded: each rank gathers only its
+contiguous block of rows. Eval batches stay whole.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.utils.device import DeviceLike, get_device
 from lipsync_tpu_torch.utils.logger import get_logger
 
@@ -40,16 +47,18 @@ class DeviceDatasetCache:
     as gathers there.
 
     ``dataset`` is a ``LipSyncDataset`` in preprocessed mode whose records
-    are all ``full_sequence``. ``mesh`` (data parallelism) is not ported
-    yet and raises. A cache larger than ``max_bytes`` (default 10 GB: room
-    for the model, optimizer and activations) is refused.
+    are all ``full_sequence``. ``mesh`` is this rank's
+    ``parallel.mesh.ProcessShard`` in a data-parallel group: train batches
+    then come out as this rank's rows, and ``batch_size`` must divide by
+    the group's size. A cache larger than ``max_bytes`` (default 10 GB:
+    room for the model, optimizer and activations) is refused.
     """
 
-    def __init__(self, dataset, mesh=None, max_bytes: float = 10e9,
-                 device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh (data parallelism) is not "
-                                      "ported yet")
+    def __init__(self, dataset, mesh: Optional[mesh_lib.ProcessShard] = None,
+                 max_bytes: float = 10e9, device: DeviceLike = None):
+        if mesh is not None and not isinstance(mesh, mesh_lib.ProcessShard):
+            raise TypeError(f"mesh must be a ProcessShard, got {mesh!r}")
+        self.mesh = mesh
         dev = get_device(device)
         if not getattr(dataset, "use_preprocessed", False):
             raise ValueError("DeviceDatasetCache needs a preprocessed "
@@ -163,9 +172,14 @@ class DeviceDatasetCache:
 
         Train mode pads the ragged final batch to ``batch_size`` with a
         ``sample_mask`` (one shape per epoch; the train step's masked
-        losses and accuracy ignore pad rows). Eval mode yields the ragged
-        tail as it is, as ``BatchLoader`` does.
+        losses and accuracy ignore pad rows), and on a mesh yields this
+        rank's rows of it. Eval mode yields the ragged tail as it is, as
+        ``BatchLoader`` does.
         """
+        shard = self.mesh if train_mode else None
+        if shard is not None and batch_size % shard.world:
+            raise ValueError(f"batch size {batch_size} does not split over "
+                             f"{shard.world} ranks")
         rng = rng or np.random.RandomState(0)
         shuffle = train_mode if shuffle is None else shuffle
         pad_to_full = train_mode if pad_to_full is None else pad_to_full
@@ -193,4 +207,9 @@ class DeviceDatasetCache:
                 mask[:b] = 1.0
             elif pad_to_full:
                 mask = np.ones((batch_size,), np.float32)
+            if shard is not None:
+                lo, hi = mesh_lib.shard_bounds(len(ib), shard.world)[
+                    shard.rank]
+                ib, starts = ib[lo:hi], starts[lo:hi]
+                mask = None if mask is None else mask[lo:hi]
             yield self.gather(ib, starts, mask)

@@ -12,7 +12,9 @@ the tuned threshold in their metadata.
 
 The base checkpoint is a reference or port ``.pth`` state dict, or a port
 checkpoint directory. The step runs on ``device`` (None: cuda:0, which
-raises without CUDA).
+raises without CUDA), with TF32 off, and in a process group data-parallel
+as ``run_training`` is (``train.py``): rank 0 writes the checkpoints and
+the confusion matrices, and every rank takes rank 0's validation numbers.
 
     python -m lipsync_tpu_torch.training.finetune --checkpoint CKPT \\
         --preprocessed-dir DIR
@@ -38,14 +40,18 @@ from lipsync_tpu_torch.training.steps import (
     create_train_state,
     make_train_step,
 )
+from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.training.train import (
     EpochData,
+    agreed,
     make_eval_fn,
+    run_entry,
+    seed_ranks,
     to_device,
     train_epoch,
     validate,
 )
-from lipsync_tpu_torch.utils.device import DeviceLike, get_device
+from lipsync_tpu_torch.utils.device import DeviceLike
 from lipsync_tpu_torch.utils.logger import get_logger
 from lipsync_tpu_torch.utils.metrics import find_best_threshold
 
@@ -136,17 +142,22 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def run_finetune(args, detector_backend=None,
                  device: DeviceLike = None) -> Dict[str, float]:
-    dev = get_device(device)
-    torch.manual_seed(args.seed)
+    return run_entry(run_finetune, _finetune, args, detector_backend, device)
+
+
+def _finetune(args, detector_backend, dev: torch.device) -> Dict[str, float]:
+    shard = mesh_lib.process_shard()
+    seed_ranks(args.seed, shard)
     cfg = ModelConfig(
         video_frames=args.video_frames,
         crop_size=args.crop_size,
         audio_frames=args.audio_frames,
     )
     model = LipSyncModel(cfg).to(dev)
-    logger.info("Finetuning on %s", dev)
+    logger.info("Finetuning on %s (rank %d of %d)", dev, mesh_lib.rank(),
+                mesh_lib.world_size())
 
-    data = EpochData(args, detector_backend, dev)
+    data = EpochData(args, detector_backend, dev, shard)
     train_step = make_train_step(LossConfig(), augment_cfg=data.augment_cfg)
 
     def build(phase: int) -> TrainState:
@@ -155,7 +166,7 @@ def run_finetune(args, detector_backend=None,
             kind="adamw", weight_decay=args.weight_decay,
             grad_clip=args.grad_clip,
         )
-        return create_train_state(model, optimizer, args.seed)
+        return create_train_state(model, optimizer, args.seed, shard)
 
     # Partial checkpoint load (shape mismatches keep the fresh init).
     merged, skipped = ckpt_lib.load_checkpoint_partially(
@@ -199,12 +210,14 @@ def run_finetune(args, detector_backend=None,
                 thresholds=np.arange(0.05, 0.951, 0.05),
             )
             f1 = best_t_metrics["f1"]
-            write_confusion_matrix(
-                out / f"confusion_epoch_{epoch:03d}.txt",
-                probs["prob_real"], probs["label"], 0.5, epoch,
-            )
+            if mesh_lib.rank() == 0:
+                write_confusion_matrix(
+                    out / f"confusion_epoch_{epoch:03d}.txt",
+                    probs["prob_real"], probs["label"], 0.5, epoch,
+                )
         else:
             best_t, f1 = 0.5, 0.0
+        val, best_t, f1 = agreed((val, float(best_t), float(f1)))
 
         logger.info(
             "Epoch %d (phase %d): train_loss=%.4f val_loss=%.4f "

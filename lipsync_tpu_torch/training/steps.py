@@ -23,6 +23,17 @@ The state is the model (parameters and buffers), the optimizer and the
 step count, plus two generators: one on the host for the shift, one on the
 model's device for the augmentation draws. Dropout draws from the device's
 default RNG, which the trainer seeds.
+
+Data parallelism (``state.shard``, a rank of a ``torch.distributed`` group):
+each rank runs its contiguous block of the global batch, and the step
+computes the JAX package's one program over the mesh. BatchNorm normalises
+with the global batch (``models/layers.py``); augmentation and dropout draw
+for the global batch and keep this rank's rows (every rank holds the same
+generators); logits, labels, mask and tokens are gathered with their
+gradients, so every rank computes the same global losses, counts and
+metrics; each rank backpropagates ``loss / world`` and the gradients are
+summed over the group before the optimizer (and its global-norm clip)
+sees them (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -31,9 +42,23 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-from lipsync_tpu_torch.models.layers import frozen_batch_stats
-from lipsync_tpu_torch.ops.augment import AugmentConfig, augment_batch
+from lipsync_tpu_torch.models.layers import (
+    batch_shard,
+    frozen_batch_stats,
+    set_process_group,
+)
+from lipsync_tpu_torch.ops.augment import (
+    AugmentConfig,
+    apply_augment,
+    draw_augment,
+)
+from lipsync_tpu_torch.parallel.collectives import (
+    all_gather_rows,
+    all_reduce_grads,
+)
+from lipsync_tpu_torch.parallel.mesh import ProcessShard
 from lipsync_tpu_torch.training.losses import (
     bce_with_logits,
     cross_modal_contrastive_loss,
@@ -49,6 +74,7 @@ class TrainState:
     generator: torch.Generator
     aug_generator: torch.Generator
     step: int = 0
+    shard: Optional[ProcessShard] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,14 +89,19 @@ class LossConfig:
 
 
 def create_train_state(model: torch.nn.Module, optimizer: PhaseOptimizer,
-                       seed: int) -> TrainState:
+                       seed: int,
+                       shard: Optional[ProcessShard] = None) -> TrainState:
     """A state over ``model`` (on its device): both generators seeded from
-    ``seed``."""
+    ``seed``. With ``shard`` (this process's rank of the default group) the
+    model's BatchNorms normalise over the group's global batch."""
     dev = next(model.parameters()).device
+    if shard is not None:
+        set_process_group(model, dist.group.WORLD)
     return TrainState(
         model=model, optimizer=optimizer,
         generator=torch.Generator().manual_seed(seed),
         aug_generator=torch.Generator(device=dev).manual_seed(seed),
+        shard=shard,
     )
 
 
@@ -92,6 +123,19 @@ def _set_rng_state(dev: torch.device, state: torch.Tensor) -> None:
         torch.set_rng_state(state)
 
 
+def _augment_rows(generator: torch.Generator, visual: torch.Tensor,
+                  audio: torch.Tensor, cfg: AugmentConfig,
+                  shard: ProcessShard):
+    """``ops.augment.augment_batch`` of the global batch, on this rank's
+    rows: the draws are made for all ``world`` blocks and sliced."""
+    b = visual.shape[0]
+    draws = draw_augment(generator, (b * shard.world,) + visual.shape[1:],
+                         (b * shard.world,) + audio.shape[1:], cfg)
+    rows = slice(shard.rank * b, (shard.rank + 1) * b)
+    return apply_augment(visual, audio, {k: v[rows] for k, v in draws.items()},
+                         cfg)
+
+
 def make_train_step(
     loss_cfg: LossConfig = LossConfig(),
     augment_cfg: Optional[AugmentConfig] = None,
@@ -108,26 +152,35 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    shift: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        model = state.model
+        model, shard = state.model, state.shard
         model.train()
         visual, audio = batch["visual"], batch["audio"]
         if visual.dtype == torch.uint8:
             visual = visual.float() / 255.0
         if augment_cfg is not None and augment_cfg.enabled:
             with torch.no_grad():
-                visual, audio = augment_batch(state.aug_generator, visual,
-                                              audio, augment_cfg)
+                visual, audio = _augment_rows(
+                    state.aug_generator, visual, audio, augment_cfg,
+                    shard or ProcessShard(0, 1))
         if shift is None and use_sync:
             pick = torch.randint(len(shifts), (), generator=state.generator)
             shift = shifts[int(pick)]
-        labels = batch["label"].float()
+        # Every loss, count and metric below is over the global batch.
+        gather = all_gather_rows if shard is not None else (lambda t: t)
+        labels = gather(batch["label"].float())
         sample_mask = batch.get("sample_mask")
+        if sample_mask is not None:
+            sample_mask = gather(sample_mask.float())
 
         dropout_rng = _rng_state(visual.device)
-        logits, aux = model(visual, audio, return_aux=True)
+        with batch_shard(shard):
+            logits, aux = model(visual, audio, return_aux=True)
+        logits = gather(logits)
+        v_tok = gather(aux["visual_tokens"])
+        a_tok = gather(aux["audio_tokens"])
         bce = bce_with_logits(logits, labels, sample_mask=sample_mask)
         cm = cross_modal_contrastive_loss(
-            aux["visual_tokens"], aux["audio_tokens"], labels,
+            v_tok, a_tok, labels,
             temperature=loss_cfg.contrastive_temperature,
             fake_margin=loss_cfg.contrastive_fake_margin,
             sample_mask=sample_mask,
@@ -137,21 +190,25 @@ def make_train_step(
         sync = torch.zeros((), device=logits.device)
         if use_sync:
             _set_rng_state(visual.device, dropout_rng)
-            with frozen_batch_stats(model):
+            with frozen_batch_stats(model), batch_shard(shard):
                 _, aux_neg = model(visual, torch.roll(audio, shift, dims=2),
                                    return_aux=True)
             real_mask = labels >= 0.5
             if sample_mask is not None:
                 real_mask = real_mask & (sample_mask > 0)
             sync = sync_contrastive_loss(
-                aux["visual_tokens"], aux["audio_tokens"],
-                [aux_neg["audio_tokens"]], real_mask=real_mask,
+                v_tok, a_tok, [gather(aux_neg["audio_tokens"])],
+                real_mask=real_mask,
                 temperature=loss_cfg.contrastive_temperature,
             )
             loss = loss + loss_cfg.sync_weight * sync
 
         state.optimizer.zero_grad()
-        loss.backward()
+        if shard is None:
+            loss.backward()
+        else:
+            (loss / shard.world).backward()
+            all_reduce_grads(model.parameters())
         state.optimizer.step()
         state.step += 1
 

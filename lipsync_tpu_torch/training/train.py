@@ -11,24 +11,40 @@ phase-aware optimizer rebuild on ``--resume``.
 
 A phase change rebuilds the optimizer with fresh state and keeps the
 parameters and BatchNorm statistics. The step runs on ``device`` (None:
-cuda:0, which raises without CUDA; the CPU only when asked). Data
-parallelism (the JAX package's mesh) is not ported yet.
+cuda:0, which raises without CUDA; the CPU only when asked), with TF32 off.
+
+Data parallelism, as the JAX package's mesh over every device it sees
+(``parallel/mesh.py``): inside a ``torch.distributed`` group (the one that
+``python -m torch.distributed.run`` sets up, which the trainer joins, or
+one the caller opened) every rank builds the same global batch, pads it to
+a multiple of the group's size under a ``sample_mask`` and trains on its
+contiguous block; the step reduces over the group, so every rank holds the
+same weights. With ``device=None`` on a host with several cards and no
+group, the trainer starts one process per card itself. Rank 0 writes the
+checkpoints; every rank takes rank 0's validation numbers.
 
     python -m lipsync_tpu_torch.training.train --preprocessed-dir DIR
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m lipsync_tpu_torch.training.train --preprocessed-dir DIR
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import socket
+import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel, ModelConfig
 from lipsync_tpu_torch.ops.augment import AugmentConfig
+from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.training import checkpoints as ckpt_lib
 from lipsync_tpu_torch.training.data import (
     Augmentations,
@@ -48,7 +64,11 @@ from lipsync_tpu_torch.training.steps import (
     make_eval_step,
     make_train_step,
 )
-from lipsync_tpu_torch.utils.device import DeviceLike, get_device
+from lipsync_tpu_torch.utils.device import (
+    DeviceLike,
+    disable_tf32,
+    get_device,
+)
 from lipsync_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
@@ -66,6 +86,86 @@ def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     """A host (numpy) or device batch as tensors on ``device``."""
     return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(v))
             .to(device) for k, v in batch.items()}
+
+
+def run_entry(entry: Callable, body: Callable, args, detector_backend,
+              device: DeviceLike) -> Dict:
+    """What ``run_training`` and ``run_finetune`` share around their
+    ``body(args, detector_backend, device)``: TF32 off; under
+    ``torch.distributed.run`` its group joined (``cuda:LOCAL_RANK``, or the
+    CPU when the caller asks for it) and left when done; and, where the
+    JAX package would train on a mesh and nothing has set one up (no
+    device asked for, several cards, no group), ``entry`` on every card."""
+    if (device is None and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1
+            and not mesh_lib.initialized()
+            and not mesh_lib.launched_by_torchrun()):
+        return on_every_card(entry, args, detector_backend)
+    dev = get_device(device)
+    disable_tf32()
+    joined = mesh_lib.launched_by_torchrun() and not mesh_lib.initialized()
+    if joined:
+        dev = mesh_lib.join_from_environment(dev.type)
+    try:
+        return body(args, detector_backend, dev)
+    finally:
+        if joined:
+            mesh_lib.leave_group()
+
+
+def _card_rank(rank: int, device: torch.device, entry: Callable, args,
+               out: str) -> None:
+    history = entry(args, device=device)
+    if rank == 0:
+        Path(out, "history.json").write_text(json.dumps(history))
+
+
+def on_every_card(entry: Callable, args, detector_backend) -> Dict:
+    """``entry(args, device=cuda:r)`` in one process per card, in one NCCL
+    group; returns rank 0's history."""
+    if detector_backend is not None:
+        raise ValueError("a detector backend does not cross to the "
+                         "trainer's spawned ranks; pass none, or start the "
+                         "ranks with torch.distributed.run")
+    with socket.socket() as sock:  # a free port for the group's store
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_lib.run_group(_card_rank, torch.cuda.device_count(), "cuda",
+                           f"tcp://localhost:{port}",
+                           args=(entry, args, tmp), join_timeout_s=None)
+        return json.loads(Path(tmp, "history.json").read_text())
+
+
+def seed_ranks(seed: int, shard: Optional[mesh_lib.ProcessShard]) -> None:
+    """Seed the initial weights and dropout, the same on every rank
+    (dropout draws the global batch's masks, ``layers.batch_shard``). In a
+    group the host's numpy RNG is seeded too: the loader draws its windows
+    from it, and every rank must build the same global batch."""
+    torch.manual_seed(seed)
+    if shard is not None:
+        np.random.seed(seed)
+
+
+def rank_rows(batch: Dict, shard: Optional[mesh_lib.ProcessShard]) -> Dict:
+    """A host batch's rows for this rank: the global batch padded to a
+    multiple of the group under a ``sample_mask``, then this rank's
+    block (the whole batch outside a group)."""
+    if shard is None or isinstance(next(iter(batch.values())),
+                                   torch.Tensor):
+        return batch  # outside a group, or already this rank's (the cache)
+    padded = mesh_lib.pad_batch_to_multiple(batch, shard.world)
+    return mesh_lib.shard_rows(padded, shard.rank, shard.world)
+
+
+def agreed(value):
+    """Rank 0's ``value`` on every rank (``value`` outside a group), so
+    that every rank takes the same decisions from it."""
+    if not mesh_lib.initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def make_eval_fn(model: LipSyncModel):
@@ -120,7 +220,8 @@ class EpochData:
     augmentation: None where the host loader augments or nothing does.
     ``run_training`` and ``run_finetune`` share it."""
 
-    def __init__(self, args, detector_backend, device: torch.device):
+    def __init__(self, args, detector_backend, device: torch.device,
+                 shard: Optional[mesh_lib.ProcessShard] = None):
         self.batch_size, self.seed = args.batch_size, args.seed
         use_cache = bool(getattr(args, "device_cache", False))
         device_augment = (
@@ -151,11 +252,16 @@ class EpochData:
         if use_cache:
             if not dataset.use_preprocessed:
                 raise SystemExit("--device-cache requires --preprocessed-dir")
+            if shard is not None and args.batch_size % shard.world:
+                raise SystemExit(
+                    f"--device-cache with {shard.world} ranks needs "
+                    f"--batch-size divisible by {shard.world}")
             from lipsync_tpu_torch.training.device_cache import (
                 DeviceDatasetCache,
             )
 
-            self.cache = DeviceDatasetCache(dataset, device=device)
+            self.cache = DeviceDatasetCache(dataset, mesh=shard,
+                                            device=device)
             return
         host_augment = not args.no_augment and not device_augment
         self.train_loader = BatchLoader(
@@ -192,9 +298,10 @@ def train_epoch(train_step, state: TrainState, batches: Iterable[Dict],
                 device: torch.device,
                 max_steps: Optional[int] = None) -> List[Dict[str, float]]:
     """One epoch of ``train_step`` over ``batches`` (at most ``max_steps``):
-    each step's metrics as floats."""
+    each step's metrics as floats (the global batch's, in a group)."""
     out = []
     for batch in batches:
+        batch = rank_rows(batch, state.shard)
         metrics = train_step(state, to_device(batch, device))
         out.append({k: float(v) for k, v in metrics.items()})
         if max_steps is not None and len(out) >= max_steps:
@@ -245,8 +352,12 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def run_training(args, detector_backend=None,
                  device: DeviceLike = None) -> Dict[str, float]:
-    dev = get_device(device)
-    torch.manual_seed(args.seed)  # initial weights and dropout
+    return run_entry(run_training, _train, args, detector_backend, device)
+
+
+def _train(args, detector_backend, dev: torch.device) -> Dict[str, float]:
+    shard = mesh_lib.process_shard()
+    seed_ranks(args.seed, shard)
     cfg = ModelConfig(
         video_frames=args.video_frames,
         crop_size=args.crop_size,
@@ -254,9 +365,10 @@ def run_training(args, detector_backend=None,
         detect_artifacts=not getattr(args, "no_artifact_branch", False),
     )
     model = LipSyncModel(cfg).to(dev)
-    logger.info("Training on %s", dev)
+    logger.info("Training on %s (rank %d of %d)", dev, mesh_lib.rank(),
+                mesh_lib.world_size())
 
-    data = EpochData(args, detector_backend, dev)
+    data = EpochData(args, detector_backend, dev, shard)
     loss_cfg = LossConfig(
         contrastive_weight=args.contrastive_weight,
         sync_weight=args.sync_weight,
@@ -268,7 +380,7 @@ def run_training(args, detector_backend=None,
             model.named_parameters(), phase, args.lr, args.lr_encoder,
             kind="adam",
         )
-        return create_train_state(model, optimizer, args.seed)
+        return create_train_state(model, optimizer, args.seed, shard)
 
     start_epoch = 0
     best = {"loss": float("inf"), "accuracy": -1.0}
@@ -289,7 +401,7 @@ def run_training(args, detector_backend=None,
         )
     state = build(phase)
 
-    eval_fn = make_eval_fn(model)
+    eval_fn = make_eval_fn(model)  # every rank validates the whole split
     scheduler = ReduceLROnPlateau(factor=0.5, patience=5)
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -316,7 +428,7 @@ def run_training(args, detector_backend=None,
                      if steps else 0.0)
 
         if data.val_idx:
-            val = validate(eval_fn, data.val_batches(), dev)
+            val = agreed(validate(eval_fn, data.val_batches(), dev))
         else:
             val = {"loss": train_loss, "accuracy": train_acc,
                    "real_accuracy": 0.0, "fake_accuracy": 0.0}

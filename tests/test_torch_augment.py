@@ -5,8 +5,9 @@ The random streams differ (``jax.random`` against ``torch.Generator``), so
 the parity tests draw each sample's parameters exactly as the JAX
 ``_augment_one`` does from its key and hand them to the port's
 ``apply_augment``. The host ``Augmentations`` draws from a numpy
-``RandomState`` on both sides; the JAX side runs with cv2 hidden, so that
-its rotation takes the scipy branch that the port keeps.
+``RandomState`` on both sides and rotates with cv2 where it imports (both
+packages), or with scipy where it does not: each branch is compared with
+cv2 visible, or hidden, on both sides.
 """
 
 from __future__ import annotations
@@ -152,20 +153,31 @@ def test_augment_batch_uint8_and_disabled(rng):
     np.testing.assert_array_equal(a.numpy(), audio)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_host_augmentations_match_jax(seed):
-    """Same RandomState on both sides, cv2 hidden on the JAX side."""
+def _host_augmentations(seed):
     src = np.random.RandomState(100 + seed)
     visual = src.rand(8, 16, 16, 3).astype(np.float32)
     audio = (src.rand(80, 32).astype(np.float32) * 80) - 80
     got_v, got_a = tdata.Augmentations()(
         visual, audio, rng=np.random.RandomState(seed))
-    with mock.patch.dict(sys.modules, {"cv2": None}):
-        want_v, want_a = jdata.Augmentations()(
-            visual, audio, rng=np.random.RandomState(seed))
+    want_v, want_a = jdata.Augmentations()(
+        visual, audio, rng=np.random.RandomState(seed))
     assert got_v.dtype == want_v.dtype == np.float32
     np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got_a, want_a, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_host_augmentations_match_jax(seed):
+    """Same RandomState on both sides, cv2 visible on both (the rotation
+    is ``cv2.warpAffine`` in both packages)."""
+    pytest.importorskip("cv2")
+    _host_augmentations(seed)
+
+
+def test_host_augmentations_match_jax_without_cv2():
+    """cv2 hidden on both sides: both rotate with scipy."""
+    with mock.patch.dict(sys.modules, {"cv2": None}):
+        _host_augmentations(0)
 
 
 def test_host_augmentations_preserve_shapes_and_ranges(rng):

@@ -7,7 +7,6 @@ device crops of a track atol 1e-5 (the crop tolerance of
 ``test_torch_engine.py``).
 """
 
-import importlib.util
 import sys
 import threading
 from unittest import mock
@@ -167,21 +166,24 @@ def _crop_cases():
 
 @pytest.mark.parametrize("out_size", [24, 48, 96])
 def test_crop_mouth_uint8_within_one_step_of_jax(out_size):
-    """The JAX function calls cv2 when it is importable (it is here), and
-    its numpy branch otherwise (as on a machine without OpenCV): the port's
-    one implementation is within one uint8 step of the first and equal to
-    the second."""
+    """Both packages call cv2 when it is importable (it is here), and
+    their numpy branch otherwise (as on a machine without OpenCV): the
+    port's crops equal the JAX package's with cv2 visible on both sides,
+    and with it hidden on both; the two branches are within one uint8 step
+    of each other."""
     pytest.importorskip("cv2")
     frame, boxes = _crop_cases()
     for box in boxes:
         got = video.crop_mouth_uint8(frame, box, out_size)
         with_cv2 = j_video.crop_mouth_uint8(frame, box, out_size)
         assert got.shape == with_cv2.shape == (out_size, out_size, 3)
-        step = np.abs(got.astype(int) - with_cv2.astype(int)).max()
-        assert step <= 1, (box, step)
+        np.testing.assert_array_equal(got, with_cv2)
         with mock.patch.dict(sys.modules, {"cv2": None}):
             numpy_branch = j_video.crop_mouth_uint8(frame, box, out_size)
-        np.testing.assert_array_equal(got, numpy_branch)
+            np.testing.assert_array_equal(
+                video.crop_mouth_uint8(frame, box, out_size), numpy_branch)
+        step = np.abs(numpy_branch.astype(int) - with_cv2.astype(int)).max()
+        assert step <= 1, (box, step)
 
 
 def test_detect_and_crop_tracks_matches_jax(backends):
@@ -215,12 +217,13 @@ def test_fit_to_window_and_mean_box_match_jax(t, max_frames):
 @pytest.mark.parametrize("tier", ["MediaPipeDetector",
                                   "MediaPipeFaceDetectionDetector"])
 def test_mediapipe_tiers_raise_import_error(tier):
-    """The MediaPipe tiers are not ported: the port's raise ImportError,
-    as the JAX package's do without the wheel, and the default chain starts
-    at the cascades in both."""
-    with pytest.raises(ImportError):
-        getattr(fd, tier)(max_num_faces=2)
-    if importlib.util.find_spec("mediapipe") is None:
+    """Without the ``mediapipe`` wheel the port's MediaPipe tiers raise
+    ImportError, as the JAX package's do, and the default chain starts at
+    the cascades in both (``test_torch_mediapipe.py`` holds the tiers
+    against the JAX ones through a stub wheel)."""
+    with mock.patch.dict(sys.modules, {"mediapipe": None}):
+        with pytest.raises(ImportError):
+            getattr(fd, tier)(max_num_faces=2)
         with pytest.raises(ImportError):
             getattr(j_fd, tier)(max_num_faces=2)
 

@@ -109,7 +109,7 @@ def test_train_start_sampling_spans_clip(pre_dir):
 def test_cache_refusals(pre_dir, monkeypatch):
     ds = LipSyncDataset(preprocessed_dir=pre_dir, video_frames=VF,
                         audio_frames=AF)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):  # a ProcessShard or None
         DeviceDatasetCache(ds, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="too large"):
         DeviceDatasetCache(ds, max_bytes=1000, device="cpu")

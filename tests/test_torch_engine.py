@@ -145,10 +145,22 @@ def test_track_windows_equal_direct_windows(engines):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_waiting_options_raise(option):
+    """``mesh`` waited for data parallelism and is ported now: an engine
+    over two shards scores as the engine on one device
+    (``test_torch_parallel_engine.py`` holds it against the JAX mesh), and
+    a mesh of things that are not devices still raises."""
     model, cfg, variables, _ = seeded_pair(5)
-    kwargs = {option: object()}
-    with pytest.raises(NotImplementedError):
-        ScoringEngine(variables, cfg, device="cpu", **kwargs)
+    with pytest.raises((TypeError, RuntimeError)):
+        ScoringEngine(variables, cfg, device="cpu", **{option: [object()]})
+    sharded = ScoringEngine(variables, cfg, use_bfloat16=False,
+                            **{option: ["cpu", "cpu"]})
+    single = ScoringEngine(variables, cfg, device="cpu", use_bfloat16=False)
+    rng = np.random.RandomState(14)
+    vis = rng.rand(3, 8, 32, 32, 3).astype(np.float32)
+    aud = (rng.rand(3, 80, 32) * 80 - 80).astype(np.float32)
+    np.testing.assert_allclose(sharded.score_logits(vis, aud),
+                               single.score_logits(vis, aud), atol=1e-5,
+                               rtol=0)
 
 
 def test_load_engine_needs_an_existing_path(tmp_path, monkeypatch):

@@ -53,6 +53,43 @@ def test_sources_import_nothing_of_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+def _forbidden_modules():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in FORBIDDEN[:4] + ("jaxlib",)
+                  or m == "lipsync_tpu" or m.startswith("lipsync_tpu."))
+
+
+def _rank_modules(rank, device, out):
+    (Path(out) / f"rank{rank}.txt").write_text(
+        "\n".join(_forbidden_modules()))
+
+
+def test_spawned_ranks_and_chip_smoke_load_no_jax(tmp_path):
+    """The ranks that ``parallel.mesh.run_group`` spawns (the data-parallel
+    tests' groups, the trainer's one process per card) start clean of JAX
+    and the JAX package, and so does ``chip_smoke.py`` with the parallel
+    package imported."""
+    from lipsync_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.run_group(_rank_modules, 2, "cpu", f"file://{tmp_path}/store",
+                       args=(str(tmp_path),), join_timeout_s=120)
+    for rank in range(2):
+        assert (tmp_path / f"rank{rank}.txt").read_text() == "", rank
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "from lipsync_tpu_torch.parallel import collectives, mesh\n"
+        "from lipsync_tpu_torch.training import train, finetune\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax') "
+        "or m == 'lipsync_tpu' or m.startswith('lipsync_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_get_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,11 +1,10 @@
 """The port's pipelined long-video scoring and request coalescing against
 the JAX package's, on the same frames, mel and bridged weights.
 
-The JAX package crops each frame with cv2 when it is importable, and with
-its numpy branch otherwise (as on a machine without OpenCV); the port has
-only that numpy branch (``test_torch_detection.py`` holds it within one
-uint8 step of cv2). The JAX side therefore runs here with cv2 hidden, so
-that both score the same crops.
+Both packages crop each frame with cv2 when it is importable, and with
+their numpy branch otherwise (as on a machine without OpenCV). The
+comparison runs with cv2 visible on both sides, and once with it hidden on
+both.
 
 Tolerances: tracks, window starts and uint8 crops exact; window
 probabilities within 1e-5.
@@ -60,6 +59,16 @@ def _script(kind, n):
                                          ("two", 1), ("short_track", 1),
                                          ("none", 1), ("dropout", 2)])
 def test_pipelined_matches_jax(engines, kind, stride):
+    _compare_pipelined(engines, kind, stride)
+
+
+def test_pipelined_matches_jax_without_cv2(engines):
+    """cv2 hidden on both sides: both crop with their numpy branch."""
+    with mock.patch.dict(sys.modules, {"cv2": None}):
+        _compare_pipelined(engines, "two", 1)
+
+
+def _compare_pipelined(engines, kind, stride):
     port, jax_engine, cfg = engines
     n = 48
     frames = synthetic_frames(n=n, seed=1)
@@ -70,8 +79,7 @@ def test_pipelined_matches_jax(engines, kind, stride):
               detection_stride=stride)
     got, got_probs = score_long_video_pipelined(
         frames, mel, port, backend=FakeDetector(_script(kind, n)), **kw)
-    with jax.default_matmul_precision("highest"), \
-            mock.patch.dict(sys.modules, {"cv2": None}):
+    with jax.default_matmul_precision("highest"):
         want, want_probs = j_score_pipelined(
             frames, mel, jax_engine, backend=JFake(_script(kind, n)), **kw)
     assert len(got) == len(want)

@@ -9,9 +9,9 @@ probabilities (``confidence``, ``raw_confidence``,
 ``window_weighted_confidence``) within 1e-5; every other float within 1e-4.
 No field is left out.
 
-The JAX predictor runs with cv2 hidden: the pipelined path's host crops then
-take its numpy branch, the port's one implementation (see
-``test_torch_pipelined.py``).
+Both predictors run with cv2 visible: the pipelined path's host crops are
+``cv2.resize`` in both packages (``test_torch_pipelined.py`` also holds the
+numpy branch, with cv2 hidden on both sides).
 """
 
 import sys
@@ -75,8 +75,7 @@ def predictors(engines, boxes, **knobs):
 
 
 def jax_call(fn, *args):
-    with jax.default_matmul_precision("highest"), \
-            mock.patch.dict(sys.modules, {"cv2": None}):
+    with jax.default_matmul_precision("highest"):
         return fn(*args)
 
 
@@ -145,13 +144,19 @@ def test_model_path_required_as_in_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [{"data_parallel_devices": 2}])
-def test_options_not_ported_yet_raise(engines, tmp_path, knob):
+def test_options_not_ported_yet_raise(engines, clips, tmp_path, knob):
+    """``data_parallel_devices`` was the option still to port; it builds a
+    two-shard mesh now (the host twice on the CPU), and the predictor's
+    response equals the one-device predictor's."""
     port_engine, _, cfg, _ = engines
     path = tmp_path / "w.pth"
     torch.save(port_engine.model.state_dict(), path)
-    with pytest.raises(NotImplementedError):
-        Predictor(model_path=path, config=PredictorConfig(**knob),
-                  model_config=cfg, device="cpu")
+    sharded = Predictor(model_path=path, config=PredictorConfig(
+        chunk_size=8, chunk_stride=4, **knob), model_config=cfg,
+        detector_backend=FakeDetector(lambda i: [BOX]), device="cpu")
+    assert sharded.engine.mesh == [torch.device("cpu")] * 2
+    port, _ = predictors(engines, [BOX])
+    assert_same(sharded.predict(clips["long"]), port.predict(clips["long"]))
 
 
 def test_predictor_from_a_weights_file(engines, clips, tmp_path):

@@ -345,13 +345,19 @@ def test_settings_coerce_and_reject_as_jax_does():
 
 
 def test_data_parallel_devices_still_raises(tmp_path):
+    """``Settings.data_parallel_devices`` raised until data parallelism was
+    ported; it now reaches the engine as a two-shard mesh, as the JAX
+    package's reaches ``make_mesh(2)``."""
     path = tmp_path / "w.pth"
     model, cfg, _, _ = seeded_pair(5)
     torch.save(model.state_dict(), path)
     settings = Settings(data_parallel_devices=2, model_path=path)
-    with pytest.raises(NotImplementedError):
-        Predictor(model_path=path, config=settings.to_predictor_config(),
+    assert (settings.to_predictor_config().data_parallel_devices
+            == jconfig.Settings(data_parallel_devices=2)
+            .to_predictor_config().data_parallel_devices == 2)
+    p = Predictor(model_path=path, config=settings.to_predictor_config(),
                   model_config=cfg, device="cpu")
+    assert p.engine.mesh == [torch.device("cpu")] * 2
 
 
 RICH_RESULT = {
@@ -466,15 +472,14 @@ def test_invalid_result_is_a_400_in_both(tmp_path, bad):
 
 
 class _JaxPredictor:
-    """The JAX predictor as its tests call it: highest matmul precision and
-    cv2 hidden, in the handler's thread."""
+    """The JAX predictor as its tests call it: highest matmul precision, in
+    the handler's thread (cv2 visible, as for the port)."""
 
     def __init__(self, predictor):
         self.predictor = predictor
 
     def predict(self, path):
-        with jax.default_matmul_precision("highest"), \
-                mock.patch.dict(sys.modules, {"cv2": None}):
+        with jax.default_matmul_precision("highest"):
             return self.predictor.predict(path)
 
     def close(self):
