@@ -9,7 +9,8 @@ each printed as one JSON line:
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the ``nvcc`` build of every kernel (``csrc/*.cu``, one compiler per
    source, all started together), with its seconds, ptxas's registers,
-   shared memory and spills (none allowed) and K2's blocks per SM (>= 2);
+   shared memory and spills (none allowed), K2's blocks per SM (>= 2)
+   and no ``wgmma`` that ptxas had to serialise (K3);
 3. K1 (log-mel) against its plain twin at 16384 / 32768 / 65536 / 262144
    / 1048576 samples (< 1e-3 dB), with kernel, twin, library (``ops/mel.py``'s
    rFFT chain) and bound times, and on a quiet-band signal against a
@@ -23,12 +24,18 @@ each printed as one JSON line:
    3): fp32 atol 2e-5, bf16 within
    |d| <= 8e-3 |fp32| + 1e-5 of the fp32 result on the same input; kernel,
    twin and bound times in both dtypes;
-4b. K3 (int8 convolution) against its twin at every int8 encoder
-   convolution of ``ModelConfig()`` (found by one int8 forward) at B = 1,
-   16 and 128 windows and at three odd shapes with partial tiles: int32
-   outputs equal; kernel time and bound (int8 tensor-core rate) at every B,
-   and at B = 16 the twin, im2col + ``torch._int_mm`` and the bf16 cuDNN
-   convolution of the same shape;
+4b. K3 (int8 convolution) and K4 (int8 quantize) against their twins at
+   every int8 encoder convolution of ``ModelConfig()`` (found by one int8
+   forward) at B = 1, 16 and 128 windows and at five odd shapes with
+   partial tiles: K3's int32 outputs equal, its dequantized fp32 and bf16
+   outputs bit-equal; K4's absmax and int8 outputs bit-equal on fp32 and
+   bf16 inputs in both memory layouts (a frame range and exact half-way
+   ties on the odd shapes). K3's device time and bound (int8 tensor-core
+   rate) at every B; at B = 16 also the dequantizing entry's, the twin,
+   im2col + ``torch._int_mm``, the bf16 cuDNN convolution of the same
+   shape, K4 beside its bound and its twin, and the whole
+   ``layers.int8_conv`` against the parent's torch chain around K3's int32
+   entry (bit-equal; device and per-call times in turns);
 5. three requests at the full width of ``ModelConfig()``, each crop ->
    log-mel (K1) -> align -> engine (K2 inside): R1 32 frames of 360x640 +
    2.2 s of PCM through ``score_probs``; R2 150 frames (10 s at 15 fps, 15
@@ -97,18 +104,26 @@ each printed as one JSON line:
    ``quantized_int8``, each as a bf16 ``Predictor`` and an fp32 engine
    from ``load_engine`` on the calibrated weights, on S, L and (fp32) R1-R3.
    K1 in every run; K2 in every run but the fold's and none under the fold;
-   K3 only in the int8 engine's runs, 24 launches per forward. Shared: L's
-   window probabilities finite, a one-window track within 1e-5 of the
-   per-window engine in fp32. Fold: fp32 |dprob| <= 1e-3 against the
-   unfolded engine on seeded weights (the JAX package's bound), a reading
-   on the calibrated ones. Int8: fp32 logits within 1e-4 of the same run
-   with K3's twin in its place; fp32 |dprob| <= 5e-3 against the fp32
-   default on seeded weights, a reading on the calibrated ones. Latency of
-   every option's bf16 ``predict`` of S and L, median of 5.
+   K3 and K4 only in the int8 engine's runs, 24 and 48 launches per
+   forward. Shared: L's window probabilities finite, a one-window track
+   within 1e-5 of the per-window engine in fp32. Fold: fp32 |dprob| <=
+   1e-3 against the unfolded engine on seeded weights (the JAX package's
+   bound), a reading on the calibrated ones. Int8: fp32 logits within 1e-4
+   of the same run with K3's and K4's twins in their places; fp32 |dprob|
+   <= 5e-3 against the fp32 default on seeded weights, a reading on the
+   calibrated ones. Latency of every option's bf16 ``predict`` of S and L,
+   median of 5;
+10. data parallelism (``data_parallel``): the engine over two shards on
+   the one card against one device (default, shared encoding, int8 with
+   its lockstep scales: K2 2, K3 48 and K4 96 launches per bucket), the
+   bf16 ``Predictor`` over that mesh, and the trainer as an NCCL world of
+   one, each checked against its one-device run; TF32 on vs off as a
+   reading.
 
-Phases 5-9 record the shape and dtype of every input that their main
-runs give each kernel's wrapper (for K3 also the weight shape, stride and
-padding); each must be one that phase 3, 4 or 4b held against the twin
+Phases 5-10 record the shape and dtype of every input that their main
+runs give each kernel's wrapper (for K3 also the weight shape, stride,
+padding, bias and output dtype; for K4 the memory layout); each must be
+one that phase 3, 4 or 4b held against the twin
 (the ``main_path_shapes`` line). Then a ``kernels`` line,
 the ``nvidia-smi`` line, and the result line
 ``{"ok": true, "device": {...}}``. Every fp32 comparison runs with TF32 off
@@ -285,12 +300,15 @@ class InMemoryClips:
 @contextlib.contextmanager
 def kernel_inputs(seen: dict):
     """While open, adds the (shape, dtype) of every input that a kernel's
-    wrapper gets to ``seen[name]``; the wrapper runs as it would."""
+    wrapper gets to ``seen[name]`` (for K3 and K4 the keys of
+    :func:`k3_key` and :func:`k4_key`); the wrapper runs as it would."""
     from lipsync_tpu_torch.models import artifact as artifact_mod
     from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import mel as k1
 
-    saved = (k1.log_mel_db, artifact_mod.hf_stem, layers_mod.int8_conv_int32)
+    saved = (k1.log_mel_db, artifact_mod.hf_stem,
+             layers_mod.int8_conv_dequant, layers_mod.absmax,
+             layers_mod.quantize)
 
     def logged(name, fn, key=lambda x, *args: shape_key(x)):
         def call(x, *args, **kwargs):
@@ -300,12 +318,14 @@ def kernel_inputs(seen: dict):
 
     k1.log_mel_db = logged("log_mel", saved[0])
     artifact_mod.hf_stem = logged("hf_stem", saved[1])
-    layers_mod.int8_conv_int32 = logged("int8_conv", saved[2], conv_key)
+    layers_mod.int8_conv_dequant = logged("int8_conv", saved[2], k3_key)
+    layers_mod.absmax = logged("int8_quant", saved[3], k4_key)
+    layers_mod.quantize = logged("int8_quant", saved[4], k4_key)
     try:
         yield
     finally:
-        (k1.log_mel_db, artifact_mod.hf_stem,
-         layers_mod.int8_conv_int32) = saved
+        (k1.log_mel_db, artifact_mod.hf_stem, layers_mod.int8_conv_dequant,
+         layers_mod.absmax, layers_mod.quantize) = saved
 
 
 def shape_key(x) -> tuple:
@@ -313,9 +333,24 @@ def shape_key(x) -> tuple:
 
 
 def conv_key(x, w, stride, padding) -> tuple:
-    """K3's input: activation shape, weight shape, stride, padding."""
+    """K3's geometry: activation shape, weight shape, stride, padding."""
     return (tuple(x.shape), tuple(w.shape), tuple(int(v) for v in stride),
             tuple(int(v) for v in padding))
+
+
+def k3_key(x, w, scale, bias, out_dtype, stride, padding) -> tuple:
+    """An input of K3's dequantizing entry: its geometry, whether it adds a
+    bias, and the dtype it writes."""
+    return (*conv_key(x, w, stride, padding), bias is not None,
+            str(out_dtype).removeprefix("torch."))
+
+
+def k4_key(x, arg=None) -> tuple:
+    """An input of K4 (``absmax(x, frames)`` or ``quantize(x, scale)``):
+    shape, dtype, memory layout, and whether absmax read a frame range."""
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+
+    return (*shape_key(x), k4.layout_of(x), isinstance(arg, tuple))
 
 
 class ClipBoxes:
@@ -1180,13 +1215,92 @@ def clip_set(ingest_mod, synthetic):
     return memory, boxes, paths
 
 
+def parent_int8_conv(x, weight, bias, stride, padding):
+    """The int8 lowering as the port ran it before K4 and K3's epilogue
+    (``models/layers.py::int8_conv`` until then): torch's elementwise chain
+    around K3's int32 entry. The yardstick of the whole fused convolution."""
+    import torch
+
+    from lipsync_tpu_torch.models.layers import _INV_127
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+
+    x32, w32 = x.float(), weight.float()
+    w_scale = torch.clamp(
+        w32.abs().amax(dim=tuple(range(1, w32.dim()))) * _INV_127,
+        min=1e-12)
+    x_scale = torch.clamp(x32.abs().max() * _INV_127, min=1e-12)
+    w_q = k4.quantize_int8(w32, w_scale.view(-1, *[1] * (w32.dim() - 1)))
+    x_q = k4.quantize_int8(x32, x_scale)
+    last = lambda t: t.movedim(1, -1).contiguous()  # noqa: E731
+    y = k3.int8_conv_int32(last(x_q), last(w_q), stride, padding)
+    out = y.float() * (x_scale * w_scale)
+    if bias is not None:
+        out = out + bias.float()
+    return out.movedim(-1, 1).to(x.dtype)
+
+
+# Device-kernel names of K3 and K4, as the profiler reports them.
+K3_KERNELS = ("int8_conv_wgmma_kernel", "int8_conv_mma_kernel")
+K4_KERNELS = ("absmax_kernel", "quant_rows_kernel", "quant_transpose_kernel")
+
+
+def device_ms(fn, kernels=None, iters: int = 10) -> float:
+    """Device time per call of ``fn`` in the kernels whose names contain
+    one of ``kernels`` (every kernel when None), from profiler traces of
+    ``iters`` calls after one warm-up: the kernels' own time, without the
+    host time between launches that an event-timed loop of small calls
+    measures. The median of three traces: a trace now and then misses
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        runs.append(sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and (kernels is None or any(k in e.key for k in kernels))))
+    return statistics.median(runs) / iters / 1e3
+
+
+def bits(t):
+    """``t``'s bit patterns, so that equality is bit for bit."""
+    import torch
+
+    return t.view({4: torch.int32, 2: torch.int16}.get(t.element_size(),
+                                                      t.dtype))
+
+
 def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
-    """K3 against its twin at every int8 encoder convolution of ``cfg``
-    (found by one int8 forward of one window) at B = 1, 16 and 128 windows,
-    and at three odd shapes with partial tiles: int32 outputs must be equal.
-    At B = 16 the kernel, its twin, im2col + ``torch._int_mm`` (cuBLASLt)
-    and the bf16 cuDNN convolution of the same shape are timed; the kernel
-    at every B, beside its bound. Returns the rows by (conv index, B)."""
+    """K3 and K4 against their twins at every int8 encoder convolution of
+    ``cfg`` (found by one int8 forward of one window) at B = 1, 16 and 128
+    windows, and at five odd shapes with partial tiles:
+
+    - K3's int32 entry equal to its twin; its dequantizing entry bit-equal
+      to its twin writing fp32 and bf16 (with a bias on the odd shapes);
+    - K4's absmax and quantize equal to their twins, bit for bit, on the
+      convolution's input as fp32 and bf16, channels-last and
+      channels-first; on the odd shapes also absmax over a frame range and
+      quantize at exact half-way ties.
+
+    At B = 16: K3 (int32 out, and dequantized to fp32 and bf16) beside its
+    bound, its twin, im2col + ``torch._int_mm`` and the bf16 cuDNN
+    convolution of the same shape; K4 on the fp32 channels-last input
+    beside its bound and its twin (the torch chain it replaces); and the
+    whole int8 convolution, ``layers.int8_conv``, against the parent's
+    torch chain around K3's int32 entry (:func:`parent_int8_conv`), equal
+    bit for bit and timed in turns. Each time is taken twice: ``*_ms`` per
+    call from CUDA events, host launch included (the kernels line's
+    yardstick, as for K1 and K2), and ``*_device_ms``, the kernels' own
+    time from the profiler (:func:`device_ms`). Returns the rows by (conv
+    index, B)."""
     import dataclasses
 
     import torch
@@ -1195,21 +1309,22 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
     from lipsync_tpu_torch.models import LipSyncModel
     from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
 
     geoms, calls = [], [0]
-    real = layers_mod.int8_conv_int32
+    real = layers_mod.int8_conv_dequant
 
-    def discover(x, w, stride, padding):
+    def discover(x, w, scale, bias, out_dtype, stride, padding):
         calls[0] += 1
         key = conv_key(x, w, stride, padding)
         if key not in geoms:
             geoms.append(key)
-        return real(x, w, stride, padding)
+        return real(x, w, scale, bias, out_dtype, stride, padding)
 
     model = LipSyncModel(dataclasses.replace(cfg, conv_lowering="int8"))
     model.load_state_dict(weights)
     model.to(dev).eval()
-    layers_mod.int8_conv_int32 = discover
+    layers_mod.int8_conv_dequant = discover
     try:
         with torch.inference_mode():
             model(torch.rand(1, cfg.video_frames, cfg.crop_size,
@@ -1217,13 +1332,16 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
                   torch.rand(1, cfg.mel_bins, cfg.audio_frames, 1,
                              device=dev) * -80)
     finally:
-        layers_mod.int8_conv_int32 = real
+        layers_mod.int8_conv_dequant = real
     del model
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rand_int8(shape):
         return torch.randint(-127, 128, shape, generator=gen, device=dev,
                              dtype=torch.int16).to(torch.int8)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
 
     def im2col_int_mm(x, w, stride, padding):
         """The same convolution as one im2col copy and one cuBLASLt int8
@@ -1243,47 +1361,188 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
         bm = F.pad(w.reshape(cout, k), (0, kp - k))
         return torch._int_mm(a, bm.t()).view(*cols.shape[:4], cout)
 
+    def activations(x_shape):
+        """K4's input for a convolution over ``x_shape`` (channels-last):
+        channels-first shape, in both memory layouts."""
+        cl = randn(*x_shape, scale=3.0).movedim(-1, 1)
+        return {"channels_last": cl, "channels_first": cl.contiguous()}
+
+    def k4_check(x, frames=None, scale=None):
+        """K4 vs its twins on ``x``: absmax's and quantize's outputs bit
+        for bit, and the largest |difference| of the int8 values."""
+        m = k4.absmax(x, frames)
+        m_twin = k4.absmax_plain(x, frames)
+        if scale is None:
+            scale = torch.clamp(m_twin * layers_mod._INV_127, min=1e-12)
+        q, q_twin = k4.quantize(x, scale), k4.quantize_plain(x, scale)
+        torch.cuda.synchronize()
+        key = (tuple(x.shape), str(x.dtype).removeprefix("torch."),
+               k4.layout_of(x))
+        checked["int8_quant"].update({(*key, False), (*key, frames
+                                                       is not None)})
+        return {"absmax_equal": bool(torch.equal(bits(m), bits(m_twin))),
+                "quantize_equal": bool(torch.equal(q, q_twin)),
+                "max_abs_err": int((q.int() - q_twin.int()).abs().max())}
+
     odd = [((3, 5, 13, 11, 32), (24, 3, 3, 3, 32), (1, 2, 2), (1, 1, 1)),
            ((2, 3, 9, 10, 3), (16, 2, 5, 3, 3), (1, 2, 1), (0, 2, 1)),
-           ((3, 11, 9, 1), (8, 7, 7, 1), (2, 2), (3, 3))]
+           ((3, 11, 9, 1), (8, 7, 7, 1), (2, 2), (3, 3)),
+           ((2, 7, 5, 96), (16, 3, 3, 96), (2, 1), (1, 1)),
+           ((2, 3, 6, 6, 64), (136, 1, 1, 1, 64), (1, 2, 2), (0, 0, 0))]
     cases = [(i, b, (b, *g[0][1:]), *g[1:]) for b in (1, 16, 128)
              for i, g in enumerate(geoms)]
     cases += [(f"odd{i}", 0, *g) for i, g in enumerate(odd)]
+    dtypes = (torch.float32, torch.bfloat16)
     rows = {}
     for name, b, x_shape, w_shape, stride, padding in cases:
         x, w = rand_int8(x_shape), rand_int8(w_shape)
+        cout = w_shape[0]
+        scale = torch.rand(cout, generator=gen, device=dev) * 1e-4 + 1e-6
+        bias = randn(cout) if b == 0 else None
         got = k3.int8_conv_int32(x, w, stride, padding)
         want = k3.int8_conv_plain(x, w, stride, padding)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
-        checked["int8_conv"].add(conv_key(x, w, stride, padding))
+        fused_equal = {}
+        for dt in dtypes:
+            fused = k3.int8_conv_dequant(x, w, scale, bias, dt, stride,
+                                         padding)
+            twin = k3.int8_conv_dequant_plain(x, w, scale, bias, dt, stride,
+                                              padding)
+            torch.cuda.synchronize()
+            fused_equal[str(dt)] = bool(torch.equal(bits(fused),
+                                                    bits(twin)))
+            checked["int8_conv"].add(k3_key(x, w, scale, bias, dt, stride,
+                                            padding))
+            del fused, twin
+        quant_equal = {}
+        for layout, xf in activations(x_shape).items():
+            for dt in dtypes:
+                quant_equal[f"{layout} {dt}"] = k4_check(xf.to(dt))
+                if b == 0:
+                    lo, hi = 1, xf.shape[2] - 1
+                    quant_equal[f"{layout} {dt} frames"] = k4_check(
+                        xf.to(dt), (lo, hi))
+            del xf
+        if b == 0:  # exact half-way ties at a scale of 1, and clamping
+            ties = (torch.randint(-127, 127, x_shape, generator=gen,
+                                  device=dev) + 0.5).movedim(-1, 1)
+            ones = torch.ones((), device=dev)
+            for dt in dtypes:
+                quant_equal[f"ties {dt}"] = k4_check(ties.to(dt),
+                                                     scale=ones)
+                quant_equal[f"clamp {dt}"] = k4_check(
+                    (ties * 3).to(dt), scale=ones)
         m, n, kk = k3.gemm_dims(x_shape, w_shape, stride, padding)
-        n_bytes = x.numel() + w.numel() + 4 * got.numel()
-        bms, bby = bound_ms(n_bytes, 2.0 * m * n * kk, INT8)
-        kms = time_ms(lambda: k3.int8_conv_int32(x, w, stride, padding),
-                      iters=10)
+        ops = 2.0 * m * n * kk
+        bms, bby = bound_ms(x.numel() + w.numel() + 4 * got.numel(), ops,
+                            INT8)
+        # Two timers, kept apart: ``*_ms`` per call from CUDA events (host
+        # launch included), as K1 and K2 are timed in the kernels line;
+        # ``*_device_ms`` the kernels' own time from the
+        # profiler (:func:`device_ms`). A share or a ratio compares only
+        # times of one timer.
+        int32 = lambda: k3.int8_conv_int32(x, w, stride, padding)  # noqa
+        kms = time_ms(int32, iters=10)
+        dms = device_ms(int32, K3_KERNELS)
         row = {"conv": name, "x": list(x_shape), "w": list(w_shape),
                "stride": list(stride), "padding": list(padding),
+               "main_loop": k3.main_loop(x_shape, w_shape),
                "m": m, "n": n, "k": kk, "equal": equal,
                "max_abs_err": int((got.long() - want.long()).abs().max()),
-               "kernel_ms": kms, "bound_ms": bms, "bound_by": bby,
-               "bound_share": bms / kms, "bound_basis": INT8}
+               "fused_equal": fused_equal, "k4_equal": quant_equal,
+               "kernel_ms": kms, "device_ms": dms,
+               "bound_ms": bms, "bound_by": bby, "bound_share": bms / kms,
+               "device_bound_share": bms / dms, "bound_basis": INT8}
         if b == 16:
-            row["plain_ms"] = time_ms(
-                lambda: k3.int8_conv_plain(x, w, stride, padding), iters=2,
-                warmup=1)
+            for dt in dtypes:
+                tag = str(dt).removeprefix("torch.")
+                size = torch.tensor([], dtype=dt).element_size()
+                fused = lambda: k3.int8_conv_dequant(  # noqa: E731
+                    x, w, scale, None, dt, stride, padding)
+                row[f"fused_{tag}_ms"] = time_ms(fused, iters=10)
+                row[f"fused_{tag}_device_ms"] = device_ms(fused, K3_KERNELS)
+                (row[f"fused_{tag}_bound_ms"],
+                 row[f"fused_{tag}_bound_by"]) = bound_ms(
+                    x.numel() + w.numel() + 4 * cout + size * got.numel(),
+                    ops, INT8)
+            plain = lambda: k3.int8_conv_plain(  # noqa: E731
+                x, w, stride, padding)
+            row["plain_ms"] = time_ms(plain, iters=2, warmup=1)
+            row["plain_device_ms"] = device_ms(plain, iters=2)
             lib = im2col_int_mm(x, w, stride, padding)
             row["int_mm_equal"] = bool(torch.equal(lib, want))
-            row["int_mm_ms"] = time_ms(
-                lambda: im2col_int_mm(x, w, stride, padding), iters=5)
             del lib
+            int_mm = lambda: im2col_int_mm(  # noqa: E731
+                x, w, stride, padding)
+            row["int_mm_ms"] = time_ms(int_mm, iters=5)
+            row["int_mm_device_ms"] = device_ms(int_mm, iters=5)
             conv = F.conv3d if x.dim() == 5 else F.conv2d
             xb = x.movedim(-1, 1).to(torch.bfloat16)
             wb = w.movedim(-1, 1).to(torch.bfloat16)
-            row["bf16_cudnn_ms"] = time_ms(
-                lambda: conv(xb, wb, stride=stride, padding=padding),
-                iters=10)
+            cudnn = lambda: conv(  # noqa: E731
+                xb, wb, stride=stride, padding=padding)
+            row["bf16_cudnn_ms"] = time_ms(cudnn, iters=10)
+            row["bf16_cudnn_device_ms"] = device_ms(cudnn)
             del xb, wb
+            # K4 on the main path's input: fp32, channels-last. Its bound
+            # reads x once and writes the int8 copy once.
+            xf = activations(x_shape)["channels_last"]
+            sc = torch.clamp(k4.absmax_plain(xf) * layers_mod._INV_127,
+                             min=1e-12)
+            k4_twin = lambda: k4.quantize_plain(  # noqa: E731
+                xf, torch.clamp(k4.absmax_plain(xf) * layers_mod._INV_127,
+                                min=1e-12))
+            for timer, timed in (("ms", lambda fn: time_ms(fn, iters=10)),
+                                 ("device_ms",
+                                  lambda fn: device_ms(fn, K4_KERNELS))):
+                row[f"k4_absmax_{timer}"] = timed(lambda: k4.absmax(xf))
+                row[f"k4_quantize_{timer}"] = timed(
+                    lambda: k4.quantize(xf, sc))
+                row[f"k4_{timer}"] = (row[f"k4_absmax_{timer}"]
+                                      + row[f"k4_quantize_{timer}"])
+            row["k4_plain_ms"] = time_ms(k4_twin, iters=10)
+            row["k4_plain_device_ms"] = device_ms(k4_twin)
+            row["k4_bound_ms"], row["k4_bound_by"] = bound_ms(
+                5 * xf.numel(), 0.0)
+            # The whole int8 convolution, fused against the parent's chain
+            # (in turns: fused, parent, parent, fused), on float weights.
+            wf = randn(cout, *w_shape[-1:], *w_shape[1:-1], scale=0.05)
+            whole = {}
+            for dt in dtypes:
+                xd = xf.to(dt)
+                fused = layers_mod.int8_conv(xd, wf, None, stride, padding)
+                chain = parent_int8_conv(xd, wf, None, stride, padding)
+                torch.cuda.synchronize()
+                tag = str(dt).removeprefix("torch.")
+                whole[f"equal_{tag}"] = bool(torch.equal(bits(fused),
+                                                         bits(chain)))
+                whole[f"strides_equal_{tag}"] = fused.stride() == \
+                    chain.stride()
+                del fused, chain
+                f_a = time_ms(lambda: layers_mod.int8_conv(
+                    xd, wf, None, stride, padding), iters=10)
+                p_a = time_ms(lambda: parent_int8_conv(
+                    xd, wf, None, stride, padding), iters=10)
+                p_b = time_ms(lambda: parent_int8_conv(
+                    xd, wf, None, stride, padding), iters=10)
+                f_b = time_ms(lambda: layers_mod.int8_conv(
+                    xd, wf, None, stride, padding), iters=10)
+                whole[f"fused_{tag}_ms"] = [f_a, f_b]
+                whole[f"parent_{tag}_ms"] = [p_a, p_b]
+                # The same calls' device time, every kernel of the chain.
+                whole[f"fused_{tag}_device_ms"] = device_ms(
+                    lambda: layers_mod.int8_conv(xd, wf, None, stride,
+                                                 padding))
+                whole[f"parent_{tag}_device_ms"] = device_ms(
+                    lambda: parent_int8_conv(xd, wf, None, stride, padding))
+                # x and w read once, the output written once.
+                whole[f"bound_{tag}_ms"] = bound_ms(
+                    xd.element_size() * (xd.numel() + got.numel())
+                    + 4 * wf.numel(), ops, INT8)[0]
+                del xd
+            row["whole"] = whole
+            del xf, wf
         rows[name, b] = row
         del x, w, got, want
     torch.cuda.empty_cache()
@@ -1292,10 +1551,22 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
               "rows": [r for (_, bb), r in rows.items() if bb == b]})
     emit({"phase": "k3_int8_conv_summary", "geometries": len(geoms),
           "int8_convs_per_forward": calls[0],
+          "wgmma_geometries": sum(k3.main_loop(g[0], g[1]) == "wgmma"
+                                  for g in geoms),
           "all_equal": all(r["equal"] for r in rows.values())})
     for (name, b), r in rows.items():
         check(r["equal"], f"K3 vs twin at conv {name}, B={b}: "
                           f"max |d| {r['max_abs_err']}")
+        check(all(r["fused_equal"].values()),
+              f"K3 dequantized vs twin at conv {name}, B={b}: "
+              f"{r['fused_equal']}")
+        check(all(v["absmax_equal"] and v["quantize_equal"]
+                  for v in r["k4_equal"].values()),
+              f"K4 vs twin at conv {name}, B={b}: {r['k4_equal']}")
+        if "whole" in r:
+            check(all(v for k, v in r["whole"].items() if "equal" in k),
+                  f"fused int8 conv vs the parent's chain at {name}: "
+                  f"{r['whole']}")
     return rows
 
 
@@ -1572,6 +1843,7 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
     from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import hf_stem as k2
     from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
     from lipsync_tpu_torch.ops.kernels import mel as k1
     from lipsync_tpu_torch.preprocessing import ingest
     from lipsync_tpu_torch.serving.config import Settings
@@ -1585,7 +1857,8 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
     options = {"default": {}, "shared": {"shared_visual_encoding": True},
                "fold": {"fold_hf_stem": True},
                "int8": {"quantized_int8": True}}
-    counters = (k1, k2, k3)
+    counters = (k1, k2, k3, k4)
+    names = ("log_mel", "hf_stem", "int8_conv", "int8_quant")
 
     def counts():
         return tuple(k.launches for k in counters)
@@ -1631,7 +1904,7 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
     with memory.installed():
         # The main run: every count set to 0, each option's predictors on S
         # and L, its fp32 engine on R1-R3.
-        k1.launches = k2.launches = k3.launches = 0
+        k1.launches = k2.launches = k3.launches = k4.launches = 0
         with record():
             for (name, dtype), pred in preds.items():
                 for clip in ("S", "L"):
@@ -1639,8 +1912,7 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
                     results[name, dtype, clip], n = launched(
                         lambda: pred.predict(paths[clip]))
                     rows[name, dtype, clip] = {
-                        "launches": dict(zip(("log_mel", "hf_stem",
-                                              "int8_conv"), n)),
+                        "launches": dict(zip(names, n)),
                         "forwards": n_fwd[name, dtype][0] - f0}
             logits = {}
             for name in options:
@@ -1649,19 +1921,19 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
                     logits[name, rname], n = launched(
                         lambda: serve(engs[name], *req, probs=False))
                     rows[name, "fp32", rname] = {
-                        "launches": dict(zip(("log_mel", "hf_stem",
-                                              "int8_conv"), n)),
+                        "launches": dict(zip(names, n)),
                         "forwards": n_fwd[name, "fp32"][0] - f0}
-        main_launches = dict(zip(("log_mel", "hf_stem", "int8_conv"),
-                                 counts()))
-        # Measured in the main run: K2 under the fold, K3 per int8 forward.
+        main_launches = dict(zip(names, counts()))
+        # Measured in the main run: K2 under the fold, K3 and K4 per int8
+        # forward.
         of = {name: [r for (n, _, _), r in rows.items() if n == name]
               for name in ("fold", "int8")}
         main_launches["hf_stem_fold"] = sum(r["launches"]["hf_stem"]
                                             for r in of["fold"])
-        main_launches["int8_conv_per_forward"] = (
-            sum(r["launches"]["int8_conv"] for r in of["int8"])
-            / sum(r["forwards"] for r in of["int8"]))
+        for k in ("int8_conv", "int8_quant"):
+            main_launches[f"{k}_per_forward"] = (
+                sum(r["launches"][k] for r in of["int8"])
+                / sum(r["forwards"] for r in of["int8"]))
 
         def window_probs(r):
             return np.asarray(r["tracks"][0]["window_confidences"])
@@ -1698,8 +1970,12 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
                                 ).max()) for r in requests}}
         twin = {}
         for r, req in requests.items():
+            before = k3.launches, k4.launches
             with plain_int8():
                 twin[r] = serve(engs["int8"], *req, probs=False)
+            torch.cuda.synchronize()
+            check((k3.launches, k4.launches) == before,
+                  "the int8 twin run launched K3 or K4")
         seeded = {r: float(np.abs(serve(seeded_int8, *req)
                                   - serve(seeded32, *req)).max())
                   for r, req in requests.items()}
@@ -1723,13 +1999,15 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
 
         # Every number is printed before any of them is checked.
         for (name, dtype, run), row in rows.items():
-            n1, n2, n3 = row["launches"].values()
+            n1, n2, n3, n4 = row["launches"].values()
             f = row["forwards"]
             check(f >= 1 and n1 >= 1, f"{name} {dtype} {run}: {row}")
             check((n2 == 0) == (name == "fold"),
                   f"K2 launches under {name} {dtype} {run}: {row}")
             check(n3 == (int8_convs * f if name == "int8" else 0),
                   f"K3 launches under {name} {dtype} {run}: {row}")
+            check(n4 == (2 * int8_convs * f if name == "int8" else 0),
+                  f"K4 launches under {name} {dtype} {run}: {row}")
         c = cmp["shared"]
         check(c["L_window_probs_finite"], f"shared L: {c}")
         check(c["one_window_vs_per_window_fp32"] <= 1e-5,
@@ -1805,6 +2083,7 @@ def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
     )
     from lipsync_tpu_torch.ops.kernels import hf_stem as k2
     from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
     from lipsync_tpu_torch.ops.kernels import mel as k1
     from lipsync_tpu_torch.parallel import mesh as mesh_lib
     from lipsync_tpu_torch.preprocessing import ingest
@@ -1830,7 +2109,8 @@ def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
     def sigmoid(x):
         return 1 / (1 + np.exp(-np.asarray(x, np.float64)))
 
-    kernels = {"log_mel": k1, "hf_stem": k2, "int8_conv": k3}
+    kernels = {"log_mel": k1, "hf_stem": k2, "int8_conv": k3,
+               "int8_quant": k4}
     launches = {name: 0 for name in kernels}
     by_device = {name: {} for name in kernels}
 
@@ -1893,10 +2173,12 @@ def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
             want = single.score_logits(windows[:n], aw3[:n])
             one_device = scales[:1]
             scales.clear()
-            before = k3.launches
+            before = k3.launches, k4.launches
             with main_run():
                 got = sharded.score_logits(windows[:n], aw3[:n])
-            out["shard_launches"][f"int8_conv_{n}"] = k3.launches - before
+            out["shard_launches"][f"int8_conv_{n}"] = k3.launches - before[0]
+            out["shard_launches"][f"int8_quant_{n}"] = (k4.launches
+                                                        - before[1])
             out["int8_dlogit"][n] = float(np.abs(got - want).max())
             out.setdefault("int8_stem_scale", {})[n] = {
                 "shards": scales[:2], "one_device": one_device}
@@ -2024,6 +2306,8 @@ def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
           f"K2 not launched once per shard: {sl}")
     check(sl["int8_conv_1"] == sl["int8_conv_32"] == 2 * 24,
           f"K3 not launched 24 times per shard: {sl}")
+    check(sl["int8_quant_1"] == sl["int8_quant_32"] == 2 * 48,
+          f"K4 not launched 48 times per shard: {sl}")
     for name, r in predicted.items():
         check(r["verdict"][0] == r["verdict"][1] and r["tracks_equal"]
               and r["dconfidence"] <= 1e-6,
@@ -2252,6 +2536,7 @@ def main() -> None:
     from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import hf_stem as k2
     from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
     from lipsync_tpu_torch.ops.kernels import mel as k1
     from lipsync_tpu_torch.preprocessing import audio as audio_mod
     from lipsync_tpu_torch.preprocessing.video import crop_track_on_device
@@ -2298,6 +2583,9 @@ def main() -> None:
     spills = [int(v) for lines in ptxas.values() for ln in lines
               for v in re.findall(r"(\d+) bytes spill", ln)]
     check(not any(spills), f"ptxas reports spills: {ptxas}")
+    serialized = [ln for log in logs.values() for ln in log.splitlines()
+                  if "wgmma" in ln and "serializ" in ln]
+    check(not serialized, f"ptxas serialised wgmma: {serialized}")
     check(k2.blocks_per_sm(torch.bfloat16) >= 2
           and k2.blocks_per_sm(torch.float32) >= 2,
           "K2 fits fewer than 2 blocks per SM")
@@ -2347,7 +2635,8 @@ def main() -> None:
                     + 3 * (n_fft // 2 + 1) + 2 * support)
 
     k1_rows = {}
-    checked = {"log_mel": set(), "hf_stem": set(), "int8_conv": set()}
+    checked = {"log_mel": set(), "hf_stem": set(), "int8_conv": set(),
+               "int8_quant": set()}
     for n in (16384, 32768, 65536, 262144, 1 << 20):
         y2 = torch.from_numpy(synthetic.pcm(rng, n)).to(dev)[None]
         t = k1.n_frames_for(n)
@@ -2569,13 +2858,17 @@ def main() -> None:
 
     @contextlib.contextmanager
     def plain_int8():
-        """The int8 lowering with K3's twin in K3's place."""
-        saved = layers_mod.int8_conv_int32
-        layers_mod.int8_conv_int32 = k3.int8_conv_plain
+        """The int8 lowering with the twins in K3's and K4's places."""
+        saved = (layers_mod.int8_conv_dequant, layers_mod.absmax,
+                 layers_mod.quantize)
+        layers_mod.int8_conv_dequant = k3.int8_conv_dequant_plain
+        layers_mod.absmax = k4.absmax_plain
+        layers_mod.quantize = k4.quantize_plain
         try:
             yield
         finally:
-            layers_mod.int8_conv_int32 = saved
+            (layers_mod.int8_conv_dequant, layers_mod.absmax,
+             layers_mod.quantize) = saved
 
     def track_inputs(req):
         """A track request's crops and aligned mel windows, as ``serve``
@@ -2737,9 +3030,23 @@ def main() -> None:
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
-    # K3 at R2's bucket, on the encoder convolution with the most work.
-    k3m = max((r for (_, b), r in k3_rows.items() if b == 16),
-              key=lambda r: r["m"] * r["n"] * r["k"])
+    # K3 at R2's bucket, on the encoder convolution with the most work (a
+    # stem, on mma.sync), and on the wgmma geometry with the most work.
+    k3_16 = [r for (_, b), r in k3_rows.items() if b == 16]
+    k3m, k3w = (max(rows, key=lambda r: r["m"] * r["n"] * r["k"])
+                for rows in (k3_16, [r for r in k3_16
+                                     if r["main_loop"] == "wgmma"]))
+
+    def k3_device(r):
+        """K3's profiler times in row ``r`` (the kernels line's ``device``),
+        with the bound's share of the int32 entry's."""
+        return {"timer": "torch.profiler kernel time",
+                "ms": r["device_ms"], "bound_share": r["device_bound_share"],
+                **{k: r[f"{k}_device_ms"] for k in (
+                    "plain", "int_mm", "bf16_cudnn", "fused_float32",
+                    "fused_bfloat16")},
+                "fused_float32_bound_ms": r["fused_float32_bound_ms"]}
+
     emit({"kernels": [
         {"name": "log_mel", "route": "cuda",
          "source": "lipsync_tpu_torch/csrc/mel.cu",
@@ -2782,13 +3089,47 @@ def main() -> None:
          "launches_data_parallel": dp_launches["int8_conv"],
          "launches_data_parallel_by_device":
              dp_launches["by_device"]["int8_conv"],
-         "shape": {k: k3m[k] for k in ("x", "w", "stride", "padding")},
+         "shape": {k: k3m[k] for k in ("x", "w", "stride", "padding",
+                                       "main_loop")},
+         # ms, plain_ms and library_ms per call from CUDA events on the
+         # int32 entry, as K1 and K2 above; the profiler's kernel times of
+         # the same calls and of the dequantizing entries under "device"
+         "timer": "cuda events per call, host launch included",
          "max_abs_err": k3m["max_abs_err"], "ms": k3m["kernel_ms"],
          "plain_ms": k3m["plain_ms"], "bound_ms": k3m["bound_ms"],
          "bound_by": k3m["bound_by"], "bound_basis": k3m["bound_basis"],
          "library_ms": k3m["int_mm_ms"],
-         "library": "im2col + torch._int_mm (cuBLASLt int8)",
-         "bf16_cudnn_ms": k3m["bf16_cudnn_ms"]},
+         "library": "im2col + torch._int_mm (cuBLASLt int8, int32 out)",
+         "bf16_cudnn_ms": k3m["bf16_cudnn_ms"],
+         "fused_float32_ms": k3m["fused_float32_ms"],
+         "fused_bfloat16_ms": k3m["fused_bfloat16_ms"],
+         "device": k3_device(k3m),
+         "wgmma": {**{k: k3w[k] for k in (
+             "x", "w", "stride", "padding", "kernel_ms", "plain_ms",
+             "bound_ms", "int_mm_ms", "bf16_cudnn_ms", "fused_float32_ms",
+             "fused_bfloat16_ms")}, "device": k3_device(k3w)}},
+        {"name": "int8_quant", "route": "cuda",
+         "source": "lipsync_tpu_torch/csrc/int8_quant.cu",
+         # no Pallas counterpart: the XLA elementwise quantize of Int8Conv
+         "replaces": "lipsync_tpu/models/layers.py:132",
+         "launches": option_launches["int8_quant"],
+         "launches_per_forward": option_launches["int8_quant_per_forward"],
+         "launches_data_parallel": dp_launches["int8_quant"],
+         "launches_data_parallel_by_device":
+             dp_launches["by_device"]["int8_quant"],
+         # absmax + quantize of K3's input above, fp32 channels-last
+         "shape": [k3m["x"][0], k3m["x"][-1], *k3m["x"][1:-1]],
+         "max_abs_err": max(v["max_abs_err"]
+                            for v in k3m["k4_equal"].values()),
+         "timer": "cuda events per call, host launch included",
+         "ms": k3m["k4_ms"], "plain_ms": k3m["k4_plain_ms"],
+         "bound_ms": k3m["k4_bound_ms"], "bound_by": k3m["k4_bound_by"],
+         "bound_basis": SIMT,
+         "device": {"timer": "torch.profiler kernel time",
+                    "ms": k3m["k4_device_ms"],
+                    "plain_ms": k3m["k4_plain_device_ms"]},
+         # no single PyTorch call; plain_ms is the torch chain it replaces
+         "library_ms": None},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,7 +28,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lipsync_tpu_torch.ops.kernels.int8_conv import int8_conv_int32
+from lipsync_tpu_torch.ops.kernels.int8_conv import int8_conv_dequant
+from lipsync_tpu_torch.ops.kernels.int8_quant import (
+    absmax,
+    quantize,
+    quantize_int8,
+)
 from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.parallel.collectives import all_gather_rows
 
@@ -208,12 +213,6 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 _INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
 
 
-def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``clip(round(x / scale), -127, 127)`` as int8; ``torch.round``
-    rounds half to even, as ``jnp.round`` does."""
-    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-
-
 def int8_conv(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -226,30 +225,32 @@ def int8_conv(
     ``x``, torch weight layout). Weights quantize per output channel
     (``max|w| / 127`` as a product with ``_INV_127``, floored at 1e-12),
     activations per *tensor* over the whole batch (every shard of an
-    in-process mesh), symmetric; the
-    convolution runs int8 x int8 -> int32 (K3);
-    the result dequantizes as ``y * (x_scale * w_scale)`` plus the bias, in
-    fp32, and comes back in ``x``'s dtype. Because the activation scale is
-    per tensor, a window's quantization grid depends on its batch-mates,
-    as in the JAX package. Inference only: K3 has no backward."""
-    x32, w32 = x.float(), weight.float()
+    in-process mesh), symmetric. On a CUDA tensor K4 takes ``max|x|``
+    (:func:`absmax`) and, once ``all_max`` has reduced the scale over the
+    shards, writes the int8 activation channels-last (:func:`quantize`);
+    K3 convolves int8 x int8 -> int32 and dequantizes in its epilogue as
+    ``acc * (x_scale * w_scale)`` plus the bias, in fp32, written in
+    ``x``'s dtype (:func:`int8_conv_dequant`): no elementwise torch pass
+    over the activation or the output. A CPU tensor takes the twins of
+    each. Because the activation scale is per tensor, a window's
+    quantization grid depends on its batch-mates, as in the JAX package.
+    Inference only: K3 has no backward. Returns the channels-last result
+    as a channels-first view."""
+    w32 = weight.float()
     w_scale = torch.clamp(
         w32.abs().amax(dim=tuple(range(1, w32.dim()))) * _INV_127,
         min=1e-12)
     # Over every in-process shard of the batch (one value outside a mesh);
     # a frame-sharded encode counts only the frames each shard owns.
-    core = mesh_lib.frame_core()
-    owned = x32 if core is None else x32[:, :, core[0]:core[1]]
-    x_scale = torch.clamp(mesh_lib.all_max(owned.abs().max()) * _INV_127,
-                          min=1e-12)
+    x_scale = torch.clamp(
+        mesh_lib.all_max(absmax(x, mesh_lib.frame_core())) * _INV_127,
+        min=1e-12)
     w_q = quantize_int8(w32, w_scale.view(-1, *[1] * (w32.dim() - 1)))
-    x_q = quantize_int8(x32, x_scale)
-    last = lambda t: t.movedim(1, -1).contiguous()  # noqa: E731
-    y = int8_conv_int32(last(x_q), last(w_q), stride, padding)
-    out = y.float() * (x_scale * w_scale)
-    if bias is not None:
-        out = out + bias.float()
-    return out.movedim(-1, 1).to(x.dtype)
+    y = int8_conv_dequant(quantize(x, x_scale),
+                          w_q.movedim(1, -1).contiguous(), x_scale * w_scale,
+                          None if bias is None else bias.float(), x.dtype,
+                          stride, padding)
+    return y.movedim(-1, 1)
 
 
 class ConvBNAct(nn.Sequential):

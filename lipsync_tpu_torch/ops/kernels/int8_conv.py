@@ -1,15 +1,23 @@
 """K3: the int8 implicit-GEMM convolution (``csrc/int8_conv.cu``), its
-wrapper and its twin.
+wrappers and their twins.
 
 The JAX package's quantized serving lowering (``models/layers.py::
 Int8Conv``) convolves int8 activations with int8 weights into int32
 (``lax.conv_general_dilated(..., preferred_element_type=int32)``, an XLA
-convolution). PyTorch has no CUDA convolution that accumulates int8 in
-int32 (``F.conv*`` on int8 tensors accumulates in int8 and wraps), so the
-port launches K3 for a CUDA tensor. The twin (:func:`int8_conv_plain`)
-convolves the int8 values in float64 and casts to int32: exact, since
-|acc| <= 127^2 x 6912 < 2^53 for every encoder convolution (float32 is not
-exact past 2^24). It runs only for a CPU tensor.
+convolution) and dequantizes the result. PyTorch has no CUDA convolution
+that accumulates int8 in int32 (``F.conv*`` on int8 tensors accumulates in
+int8 and wraps), so the port launches K3 for a CUDA tensor, with two
+entries: :func:`int8_conv_int32`, the exact int32 sums, and
+:func:`int8_conv_dequant`, whose epilogue writes ``float(acc) * scale[c]
+(+ bias[c])`` in fp32 or bf16, the serving path's. The geometry picks the
+main loop (:func:`main_loop`): ``wgmma`` where ``C_in % 32 == 0``,
+``mma.sync`` for the stems.
+
+The twin (:func:`int8_conv_plain`) convolves the int8 values in float64
+and casts to int32: exact, since |acc| <= 127^2 x 6912 < 2^53 for every
+encoder convolution (float32 is not exact past 2^24). The dequantizing
+twin (:func:`int8_conv_dequant_plain`) follows it with the torch ops that
+the epilogue reproduces bit for bit. The twins run only for a CPU tensor.
 
 Layouts are channels-last: activations ``(N, [D,] H, W, C_in)``, weights
 ``(C_out, [kD,] kH, kW, C_in)``, output ``(N, [Do,] Ho, Wo, C_out)``.
@@ -18,14 +26,19 @@ Layouts are channels-last: activations ``(N, [D,] H, W, C_in)``, weights
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from lipsync_tpu_torch.ops.kernels import build
 
-K_STEP = 32  # the kernel's K per step; weights are zero-padded to it
+# K per step of each main loop; the wrapper zero-pads the weights to it.
+K_STEP = {"mma.sync": 32, "wgmma": 128}
+# K that the wgmma loop's table of K chunks holds; the wrappers refuse a
+# larger K there.
+WGMMA_MAX_K = 8192
+_OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 # Launches of the CUDA kernel in this process (the CPU twin does not count),
 # in all and by device.
@@ -47,10 +60,7 @@ def gemm_dims(x_shape: Sequence[int], w_shape: Sequence[int],
     m = x_shape[0]
     for v in spatial:
         m *= v
-    k = 1
-    for v in w_shape[1:]:
-        k *= v
-    return m, w_shape[0], k
+    return m, w_shape[0], _taps(w_shape)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, stride, padding) -> int:
@@ -63,8 +73,18 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride, padding) -> int:
     if x.shape[-1] != w.shape[-1]:
         raise ValueError(f"input channels differ: {x.shape[-1]} vs "
                          f"{w.shape[-1]}")
+    if w.shape[0] % 8:
+        raise ValueError(f"C_out must be a multiple of 8, got {w.shape[0]}")
+    if w.device != x.device:
+        raise ValueError(f"operands on {x.device} and {w.device}")
     if len(stride) != nd or len(padding) != nd:
         raise ValueError(f"stride {stride} / padding {padding} for {nd}-d")
+    if main_loop(x.shape, w.shape) == "wgmma":
+        step = K_STEP["wgmma"]
+        kp = -(-_taps(w.shape) // step) * step
+        if kp > WGMMA_MAX_K:
+            raise ValueError(f"K = {kp} (padded) is past the wgmma loop's "
+                             f"tap table of {WGMMA_MAX_K}")
     return nd
 
 
@@ -80,6 +100,33 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor,
     return y.movedim(1, -1).to(torch.int32).contiguous()
 
 
+def int8_conv_dequant_plain(x: torch.Tensor, w: torch.Tensor,
+                            scale: torch.Tensor,
+                            bias: Optional[torch.Tensor],
+                            out_dtype: torch.dtype, stride: Sequence[int],
+                            padding: Sequence[int]) -> torch.Tensor:
+    """Twin of the dequantizing entry: :func:`int8_conv_plain`, then
+    ``y.float() * scale (+ bias)`` in fp32 and the cast to ``out_dtype``."""
+    out = int8_conv_plain(x, w, stride, padding).float() * scale
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
+
+
+def _taps(w_shape: Sequence[int]) -> int:
+    """K of the GEMM: taps x input channels."""
+    k = 1
+    for v in w_shape[1:]:
+        k *= v
+    return k
+
+
+def main_loop(x_shape: Sequence[int], w_shape: Sequence[int]) -> str:
+    """The kernel's main loop for these shapes (channels-last, 2-d or 3-d):
+    ``"wgmma"`` when ``C_in % 32 == 0``, else ``"mma.sync"``."""
+    return "wgmma" if x_shape[-1] % 32 == 0 else "mma.sync"
+
+
 def int8_conv_int32(x: torch.Tensor, w: torch.Tensor,
                     stride: Sequence[int], padding: Sequence[int]
                     ) -> torch.Tensor:
@@ -87,14 +134,46 @@ def int8_conv_int32(x: torch.Tensor, w: torch.Tensor,
     [kD,] kH, kW, C_in), zero padding, into int32 (N, [Do,] Ho, Wo,
     C_out). Launches K3 for a CUDA tensor; the twin runs only for a CPU
     tensor."""
-    global launches
-    nd = _check(x, w, stride, padding)
+    _check(x, w, stride, padding)
     if x.device.type == "cpu":
         return int8_conv_plain(x, w, stride, padding)
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"unsupported devices {x.device}, {w.device}")
-    if w.shape[0] % 8:
-        raise ValueError(f"C_out must be a multiple of 8, got {w.shape[0]}")
+    return _launch(x, w, None, None, torch.int32, stride, padding)
+
+
+def int8_conv_dequant(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+                      stride: Sequence[int], padding: Sequence[int]
+                      ) -> torch.Tensor:
+    """The convolution of :func:`int8_conv_int32`, dequantized in the
+    epilogue: ``float(acc) * scale[c] (+ bias[c])`` as ``out_dtype``
+    (float32 or bfloat16), channels-last. ``scale`` and ``bias`` are fp32
+    vectors of C_out on the operands' device. Launches K3 for a CUDA
+    tensor; the twin runs only for a CPU tensor."""
+    _check(x, w, stride, padding)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    vectors = [("scale", scale)] + ([] if bias is None else [("bias", bias)])
+    for name, v in vectors:
+        if v.dtype != torch.float32 or tuple(v.shape) != (w.shape[0],):
+            raise ValueError(f"{name} must be float32 of shape "
+                             f"({w.shape[0]},), got {v.dtype} "
+                             f"{tuple(v.shape)}")
+        if v.device != x.device:
+            raise ValueError(f"{name} on {v.device}, operands on {x.device}")
+    if x.device.type == "cpu":
+        return int8_conv_dequant_plain(x, w, scale, bias, out_dtype, stride,
+                                       padding)
+    return _launch(x, w, scale.contiguous(),
+                   None if bias is None else bias.contiguous(), out_dtype,
+                   stride, padding)
+
+
+def _launch(x, w, scale, bias, out_dtype, stride, padding) -> torch.Tensor:
+    global launches
+    nd = x.dim() - 2
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
     if nd == 2:  # one frame of a 3-d convolution
         x, w = x.unsqueeze(1), w.unsqueeze(1)
         stride, padding = (1, *stride), (0, *padding)
@@ -105,18 +184,23 @@ def int8_conv_int32(x: torch.Tensor, w: torch.Tensor,
                                             stride, padding))
     if min(n, od, oh, ow) <= 0:
         raise ValueError(f"empty output for input {tuple(x.shape)}")
+    loop = main_loop(x.shape, w.shape)
+    if loop == "wgmma" and x.data_ptr() % 16:  # a view into another tensor
+        x = x.clone()
     k = kd * kh * kw * c
-    kp = -(-k // K_STEP) * K_STEP
+    kp = -(-k // K_STEP[loop]) * K_STEP[loop]
     wp = F.pad(w.reshape(cout, k), (0, kp - k)).contiguous()
-    vec = int(c % K_STEP == 0 and x.data_ptr() % 16 == 0)
-    out = torch.empty((n, od, oh, ow, cout), dtype=torch.int32,
+    out = torch.empty((n, od, oh, ow, cout), dtype=out_dtype,
                       device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.lipsync_int8_conv(
-            x.data_ptr(), wp.data_ptr(), out.data_ptr(), n, d, h, wd, c,
-            kd, kh, kw, *stride, *padding, od, oh, ow, cout, kp, vec, stream)
+            x.data_ptr(), wp.data_ptr(), out.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), _OUT_KINDS[out_dtype],
+            n, d, h, wd, c, kd, kh, kw, *stride, *padding, od, oh, ow, cout,
+            kp, int(loop == "wgmma"), stream)
     if err != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: cudaError {err}")
     with build.COUNT_LOCK:
@@ -129,7 +213,7 @@ def int8_conv_int32(x: torch.Tensor, w: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = build.library("int8_conv")
     fn = lib.lipsync_int8_conv
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 20 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 21 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
