@@ -1,5 +1,6 @@
 from lipsync_tpu_torch.models.bridge import (
     bn_calibrated_state_dict,
+    legacy_fusion_state_dict,
     seeded_state_dict,
     unwrap_state_dict,
     variables_to_state_dict,
@@ -10,6 +11,7 @@ __all__ = [
     "LipSyncModel",
     "ModelConfig",
     "bn_calibrated_state_dict",
+    "legacy_fusion_state_dict",
     "seeded_state_dict",
     "unwrap_state_dict",
     "variables_to_state_dict",

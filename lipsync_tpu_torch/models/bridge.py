@@ -14,6 +14,9 @@ reference ``.pth`` loads with ``load_state_dict(strict=True)`` and a port
   q/k/v (D,D) each      -> packed in_proj_weight (3D,D), in_proj_bias (3D,)
   BatchNorm scale/bias  -> weight/bias; batch_stats mean/var -> running_*
 
+:func:`legacy_fusion_state_dict` does the same for the unwired
+``LegacyFusionModule``.
+
 :func:`seeded_state_dict` makes numpy weights for a port module from a
 seed, with non-trivial BatchNorm statistics (mean != 0, var != 1).
 :func:`bn_calibrated_state_dict` replaces those statistics with the ones a
@@ -174,6 +177,16 @@ def variables_to_state_dict(variables: Tree) -> Dict[str, torch.Tensor]:
     e.linear("classifier.net.0", ("classifier", "fc1"))
     e.layernorm("classifier.net.3", ("classifier", "norm"))
     e.linear("classifier.net.4", ("classifier", "fc2"))
+    return e.sd
+
+
+def legacy_fusion_state_dict(variables: Tree) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``LegacyFusionModule`` variables -> the port's
+    ``LegacyFusionModule`` ``state_dict``: each flax ``Dense`` kernel
+    ``(in, out)`` becomes an ``nn.Linear`` weight ``(out, in)``."""
+    e = _Emitter(variables)
+    e.linear("fc1", ("fc1",))
+    e.linear("fc2", ("fc2",))
     return e.sd
 
 

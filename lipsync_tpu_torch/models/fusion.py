@@ -4,7 +4,8 @@ Counterpart of ``models/fusion.py`` in the JAX package (``FeatureProjection``
 and ``CrossModalAttention``): audio is linearly interpolated to the visual
 token rate, video attends to audio and audio to video, and a per-token
 sigmoid gate blends the two before a Linear+ReLU fuse. Tokens are
-``(B, T, D)``.
+``(B, T, D)``. ``LegacyFusionModule`` is the reference's concat-then-MLP
+fusion, which no model wires in.
 """
 
 from __future__ import annotations
@@ -53,3 +54,35 @@ class CrossModalAttention(nn.Module):
         a_out = audio_emb + self.a2v_attn(audio_emb, visual_emb, visual_emb)
         g = self.gate(torch.cat([v_out, a_out], dim=-1))
         return self.fuse(g * v_out + (1.0 - g) * a_out)
+
+
+class LegacyFusionModule(nn.Module):
+    """Concat-then-MLP time-wise fusion, the JAX package's
+    ``LegacyFusionModule``: kept for API parity with the reference, which
+    ships it but never wires it into ``LipSyncModel``. Audio is linearly
+    interpolated to the visual token rate when lengths differ, then each
+    timestep's concatenated pair runs through Linear(2D->H)+ReLU+
+    Linear(H->D)+ReLU."""
+
+    def __init__(self, embed_dim: int = 256, hidden_dim: int = 256):
+        super().__init__()
+        self.fc1 = nn.Linear(2 * embed_dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, embed_dim)
+
+    def forward(
+        self, visual_emb: torch.Tensor, audio_emb: torch.Tensor
+    ) -> torch.Tensor:
+        if visual_emb.ndim != 3 or audio_emb.ndim != 3:
+            raise ValueError(
+                "LegacyFusionModule expects (B, T, D) visual and audio inputs"
+            )
+        if (
+            visual_emb.shape[0] != audio_emb.shape[0]
+            or visual_emb.shape[2] != audio_emb.shape[2]
+        ):
+            raise ValueError(
+                "visual_emb and audio_emb must share batch and feature dims"
+            )
+        audio_emb = interp_linear_time(audio_emb, visual_emb.shape[1])
+        x = torch.relu(self.fc1(torch.cat([visual_emb, audio_emb], dim=-1)))
+        return torch.relu(self.fc2(x))

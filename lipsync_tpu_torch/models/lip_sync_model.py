@@ -40,6 +40,7 @@ from lipsync_tpu_torch.models.fusion import (
 )
 from lipsync_tpu_torch.models.temporal import TemporalTransformer
 from lipsync_tpu_torch.models.visual_encoder import VisualEncoder
+from lipsync_tpu_torch.utils.device import DeviceLike, get_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,3 +162,20 @@ class LipSyncModel(nn.Module):
             "fused_tokens": fused,
             "cls_output": cls_output,
         }
+
+
+def example_inputs(
+    cfg: ModelConfig = ModelConfig(), batch: int = 1,
+    dtype: torch.dtype = torch.float32, device: DeviceLike = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero inputs with the canonical shapes, ``(B, T, H, W, 3)`` and
+    ``(B, F, T_a, 1)``, on ``get_device(device)`` (for warm-up and shape
+    checks)."""
+    dev = get_device(device)
+    visual = torch.zeros(
+        (batch, cfg.video_frames, cfg.crop_size, cfg.crop_size, 3),
+        dtype=dtype, device=dev,
+    )
+    audio = torch.zeros((batch, cfg.mel_bins, cfg.audio_frames, 1),
+                        dtype=dtype, device=dev)
+    return visual, audio

@@ -4,10 +4,13 @@ Counterpart of ``models/temporal.py::TemporalTransformer`` in the JAX
 package: parallel Conv1d branches (k=3, 5, 7) + BN + GELU, concatenated and
 projected back with a residual add; a learnable CLS token is prepended and
 N pre-norm encoder layers run over the ``(1+T)``-token sequence; the CLS
-output is returned.
+output is returned. :func:`temporal_aggregation` is the reference's legacy
+masked mean over time, which no model wires in.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -65,3 +68,34 @@ class TemporalTransformer(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(b, 1, d)
         tokens = self.transformer(torch.cat([cls, x], dim=1))
         return tokens[:, 0]
+
+
+def temporal_aggregation(
+    x: torch.Tensor, lengths: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Masked global-average pooling over time, the JAX package's
+    ``temporal_aggregation`` (the reference's parameter-free legacy
+    ``TemporalAggregation``): the mean over axis 1, or with ``lengths``
+    (``(B,)`` valid lengths) the mean over ``t < lengths[b]``, with
+    zero-length rows divided by 1.
+
+    Args:
+        x: ``(B, T, D)`` fused features.
+        lengths: optional ``(B,)`` integer tensor of valid lengths.
+
+    Returns:
+        ``(B, D)`` pooled features.
+    """
+    if x.ndim != 3:
+        raise ValueError(
+            f"temporal_aggregation expects (B, T, D), got {tuple(x.shape)}"
+        )
+    if lengths is None:
+        return x.mean(dim=1)
+    lengths = torch.as_tensor(lengths, device=x.device)
+    if lengths.ndim != 1 or lengths.shape[0] != x.shape[0]:
+        raise ValueError("lengths must be (B,) and match the batch size")
+    steps = torch.arange(x.shape[1], device=x.device)
+    mask = (steps[None, :] < lengths[:, None]).to(x.dtype)[..., None]
+    denom = lengths.clamp(min=1).to(x.dtype)[:, None]
+    return (x * mask).sum(dim=1) / denom

@@ -1,13 +1,18 @@
 """Learned lip localizer: a tiny regression CNN above the heuristic tier.
 
-Counterpart of ``preprocessing/lip_localizer.py`` in the JAX package, for
-inference only (its training branch comes with the training slice). A
+Counterpart of ``preprocessing/lip_localizer.py`` in the JAX package. A
 ~30k-parameter CNN regresses the raw lip extent inside the heuristic mouth
 box; the reference's landmark tier pad of +-20 px is applied afterwards in
 frame pixels. Inference is pure numpy (im2col convolutions as three small
 matmuls), on the host detection path, with no device round-trip. Degenerate
 predictions return the input box. The weights are the committed
 ``weights/lip_localizer.npz``.
+
+Training runs the same network as :class:`LipLocalizerNet` (PyTorch, on the
+card by default; ``tools/train_lip_localizer.py``). :func:`init_params`
+makes the flat numpy parameter set that the numpy :func:`forward` and the
+``npz`` file use; ``LipLocalizerNet.from_params`` and ``to_params`` convert
+to and from it exactly.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.nn as nn
 
 from lipsync_tpu_torch.preprocessing.face_detection import Detection
 from lipsync_tpu_torch.utils.logger import get_logger
@@ -34,6 +41,31 @@ DEFAULT_WEIGHTS = (
 
 # (name, cin, cout) for the three stride-2 3x3 conv stages: 32->16->8->4.
 _CONV_STAGES = (("conv1", 3, 8), ("conv2", 8, 16), ("conv3", 16, 32))
+_DENSE_HIDDEN = 64
+_FLAT = (PATCH // 8) * (PATCH // 8) * _CONV_STAGES[-1][2]
+
+
+def init_params(rng: np.random.RandomState) -> dict:
+    """He-init parameter dict (flat names; numpy arrays), draw for draw the
+    JAX package's, so one seed gives the same parameters."""
+    params = {}
+    for name, cin, cout in _CONV_STAGES:
+        fan_in = 9 * cin
+        params[f"{name}_w"] = (
+            rng.randn(9 * cin, cout) * np.sqrt(2.0 / fan_in)
+        ).astype(np.float32)
+        params[f"{name}_b"] = np.zeros(cout, np.float32)
+    params["dense1_w"] = (
+        rng.randn(_FLAT, _DENSE_HIDDEN) * np.sqrt(2.0 / _FLAT)
+    ).astype(np.float32)
+    params["dense1_b"] = np.zeros(_DENSE_HIDDEN, np.float32)
+    params["dense2_w"] = (
+        rng.randn(_DENSE_HIDDEN, 4) * 0.01
+    ).astype(np.float32)
+    # Bias toward the patch's middle band (lips fill most of a heuristic
+    # mouth box) so step 0 predictions are already sane.
+    params["dense2_b"] = np.array([0.2, 0.3, 0.8, 0.7], np.float32)
+    return params
 
 
 def _conv3x3_s2(x, w, b):
@@ -64,6 +96,66 @@ def forward(params: dict, patches: np.ndarray) -> np.ndarray:
     x = x.reshape(x.shape[0], -1)
     x = np.maximum(x @ params["dense1_w"] + params["dense1_b"], 0.0)
     return x @ params["dense2_w"] + params["dense2_b"]
+
+
+class LipLocalizerNet(nn.Module):
+    """The localizer as a PyTorch module, for training: three
+    ``Conv2d(3x3, stride 2, padding 1)`` + ReLU stages (32 -> 16 -> 8 -> 4),
+    ``Linear(512 -> 64)`` + ReLU, ``Linear(64 -> 4)``. It takes NHWC
+    patches, as :func:`forward` does, and computes the same function."""
+
+    def __init__(self):
+        super().__init__()
+        for name, cin, cout in _CONV_STAGES:
+            self.add_module(name, nn.Conv2d(cin, cout, 3, stride=2,
+                                            padding=1))
+        self.dense1 = nn.Linear(_FLAT, _DENSE_HIDDEN)
+        self.dense2 = nn.Linear(_DENSE_HIDDEN, 4)
+
+    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+        """(N, PATCH, PATCH, 3) in [0, 1] -> (N, 4) normalized boxes."""
+        x = patches.permute(0, 3, 1, 2)
+        for name, _, _ in _CONV_STAGES:
+            x = torch.relu(getattr(self, name)(x))
+        # dense1's rows follow the numpy forward's NHWC flattening.
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.dense2(torch.relu(self.dense1(x)))
+
+    @classmethod
+    def from_params(cls, params: dict) -> "LipLocalizerNet":
+        """The module holding a flat parameter set (:func:`init_params`, an
+        ``npz`` file). A conv weight ``(9*Cin, Cout)`` is tap-major
+        ``(dy, dx, cin)``; a dense weight is ``(in, out)``."""
+        net = cls()
+        state = {}
+        for name, cin, cout in _CONV_STAGES:
+            w = torch.as_tensor(np.asarray(params[f"{name}_w"], np.float32))
+            state[f"{name}.weight"] = w.reshape(3, 3, cin, cout).permute(
+                3, 2, 0, 1)
+            state[f"{name}.bias"] = torch.as_tensor(
+                np.asarray(params[f"{name}_b"], np.float32))
+        for name in ("dense1", "dense2"):
+            state[f"{name}.weight"] = torch.as_tensor(
+                np.asarray(params[f"{name}_w"], np.float32)).T
+            state[f"{name}.bias"] = torch.as_tensor(
+                np.asarray(params[f"{name}_b"], np.float32))
+        net.load_state_dict({k: v.contiguous() for k, v in state.items()})
+        return net
+
+    def to_params(self) -> dict:
+        """The flat numpy parameter set (float32, on the host) that
+        :func:`forward`, :class:`LipLocalizer` and the ``npz`` file use."""
+        params = {}
+        for name, cin, cout in _CONV_STAGES:
+            conv = getattr(self, name)
+            params[f"{name}_w"] = conv.weight.detach().permute(
+                2, 3, 1, 0).reshape(9 * cin, cout)
+            params[f"{name}_b"] = conv.bias.detach()
+        for name in ("dense1", "dense2"):
+            params[f"{name}_w"] = getattr(self, name).weight.detach().T
+            params[f"{name}_b"] = getattr(self, name).bias.detach()
+        return {k: np.ascontiguousarray(v.float().cpu().numpy())
+                for k, v in params.items()}
 
 
 def _bilinear_resize(region: np.ndarray, size: int) -> np.ndarray:

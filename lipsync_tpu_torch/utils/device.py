@@ -33,6 +33,17 @@ def get_device(device: DeviceLike = None) -> torch.device:
     return device
 
 
+def device_summary(device: DeviceLike = None) -> str:
+    """``"<count>x <type> (<name>)"`` of the devices of ``device``'s type,
+    e.g. ``"1x cuda (NVIDIA H100 80GB HBM3)"`` (``cuda:0`` unless the caller
+    asks for another)."""
+    dev = get_device(device)
+    if dev.type == "cuda":
+        index = 0 if dev.index is None else dev.index
+        return (f"{torch.cuda.device_count()}x cuda "
+                f"({torch.cuda.get_device_name(index)})")
+    return f"1x {dev.type} ({dev.type})"
+
 
 def disable_tf32() -> None:
     """Run fp32 convolutions and matmuls on CUDA in fp32, not TF32.

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import tempfile
 from pathlib import Path
+from typing import Tuple
 
 
 def save_bytes_to_temp(data: bytes, suffix: str = ".mp4") -> Path:
@@ -18,3 +19,9 @@ def save_bytes_to_temp(data: bytes, suffix: str = ".mp4") -> Path:
     finally:
         f.close()
     return Path(f.name)
+
+
+def split_av_paths(path: Path) -> Tuple[Path, Path]:
+    """The container holds both streams: the same path for video and
+    audio."""
+    return path, path

@@ -5,11 +5,13 @@ moving, resizing mouth box over shifted noise, and a 220 Hz tone with a
 :func:`track_windows` runs a request through the device half of the path
 (crops, log-mel, alignment) and stacks its sliding windows as the model
 takes them, for measurements that feed the model directly.
-:func:`write_corpus` writes requests as a preprocessed training corpus.
+:func:`write_corpus` writes requests as a preprocessed training corpus, in
+any of the three store formats that ``training/data.py`` reads.
 """
 
 from __future__ import annotations
 
+import io
 import json
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -20,6 +22,7 @@ import torch
 from lipsync_tpu_torch.inference.policy import align_audio_chunk
 from lipsync_tpu_torch.preprocessing.audio import preprocess_audio_pcm
 from lipsync_tpu_torch.preprocessing.video import crop_track_on_device
+from lipsync_tpu_torch.utils import kvlite, zarrlite
 from lipsync_tpu_torch.utils.device import DeviceLike, get_device
 
 SR = 16000
@@ -64,6 +67,9 @@ def requests(seed: int) -> Dict[str, Request]:
             "R3": request(rng, 600, 600 / FPS)}
 
 
+STORAGE_FORMATS = ("npy", "zarr", "lmdb")
+
+
 def write_corpus(
     out_dir: Path,
     n_clips: int = 32,
@@ -71,37 +77,69 @@ def write_corpus(
     crop_size: int = 96,
     seed: int = 0,
     device: DeviceLike = None,
+    storage_format: str = "npy",
 ) -> Path:
     """A preprocessed training corpus of ``n_clips`` requests of
     ``n_frames`` frames, as ``training/data.py`` reads it: per clip the
     mouth crops ``(n_frames, crop, crop, 3)`` uint8 and the log-mel
-    ``(80, T_a)`` dB as npy files, and one ``full_sequence`` record per
-    clip in ``manifest.jsonl``. Even clips are labelled real (1); odd clips
-    are fake (0), their audio rolled by half the clip against the video.
-    Crops and the log-mel run on ``device``."""
+    ``(80, T_a)`` dB, and one ``full_sequence`` record per clip in
+    ``manifest.jsonl``. Even clips are labelled real (1); odd clips are
+    fake (0), their audio rolled by half the clip against the video. Crops
+    and the log-mel run on ``device``.
+
+    ``storage_format`` stores each clip as the JAX package's
+    ``scripts/precompute_training_tensors.py`` does: ``"npy"``, two files
+    named in the record; ``"zarr"``, a group per key holding ``visual`` and
+    ``audio`` in ``samples.zarr``; ``"lmdb"``, one ``np.savez`` blob per
+    key in the kvlite file ``samples.lmdb``. The zarr and lmdb records name
+    their format."""
+    if storage_format not in STORAGE_FORMATS:
+        raise ValueError(f"Unknown storage format: {storage_format!r}")
     dev = get_device(device)
     rng = np.random.default_rng(seed)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if storage_format == "zarr":
+        store = zarrlite.open_group(out_dir / "samples.zarr", mode="w")
+    elif storage_format == "lmdb":
+        (out_dir / "samples.lmdb").unlink(missing_ok=True)
+        store = kvlite.open(out_dir / "samples.lmdb")
     records = []
-    for i in range(n_clips):
-        frames, boxes, y = request(rng, n_frames, n_frames / FPS)
-        label = int(i % 2 == 0)
-        if not label:
-            y = np.roll(y, len(y) // 2)
-        crops = crop_track_on_device(frames, boxes, 0, crop_size, device=dev)
-        visual = np.clip(crops * 255.0 + 0.5, 0, 255).astype(np.uint8)
-        key = f"clip_{i:04d}"
-        np.save(out_dir / f"{key}_visual.npy", visual)
-        np.save(out_dir / f"{key}_audio.npy",
-                preprocess_audio_pcm(y, device=dev))
-        records.append({
-            "key": key, "label": label, "source_path": f"synthetic/{key}",
-            "visual_relpath": f"{key}_visual.npy",
-            "audio_relpath": f"{key}_audio.npy",
-            "precompute_mode": "full_sequence",
-            "target_fps": FPS, "mel_hz": 100.0,
-        })
+    try:
+        for i in range(n_clips):
+            frames, boxes, y = request(rng, n_frames, n_frames / FPS)
+            label = int(i % 2 == 0)
+            if not label:
+                y = np.roll(y, len(y) // 2)
+            crops = crop_track_on_device(frames, boxes, 0, crop_size,
+                                         device=dev)
+            visual = np.clip(crops * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            audio = preprocess_audio_pcm(y, device=dev)
+            key = f"clip_{i:04d}"
+            rec = {"key": key, "label": label,
+                   "source_path": f"synthetic/{key}"}
+            if storage_format == "npy":
+                np.save(out_dir / f"{key}_visual.npy", visual)
+                np.save(out_dir / f"{key}_audio.npy", audio)
+                rec.update(visual_relpath=f"{key}_visual.npy",
+                           audio_relpath=f"{key}_audio.npy")
+            elif storage_format == "zarr":
+                grp = store.require_group(key)
+                grp.create_array("visual", visual)
+                grp.create_array("audio", audio)
+                rec["storage_format"] = storage_format
+            else:
+                buf = io.BytesIO()
+                np.savez(buf, visual=visual, audio=audio)
+                with store.begin(write=True) as txn:
+                    txn.put(key.encode("utf-8"), buf.getvalue())
+                rec["storage_format"] = storage_format
+            rec.update(precompute_mode="full_sequence", target_fps=FPS,
+                       mel_hz=100.0)
+            records.append(rec)
+    finally:
+        if storage_format == "lmdb":
+            store.close()
     (out_dir / "manifest.jsonl").write_text(
         "\n".join(json.dumps(r) for r in records) + "\n")
     return out_dir
