@@ -26,16 +26,18 @@ each printed as one JSON line:
    twin and bound times in both dtypes;
 4b. K3 (int8 convolution) and K4 (int8 quantize) against their twins at
    every int8 encoder convolution of ``ModelConfig()`` (found by one int8
-   forward) at B = 1, 16 and 128 windows and at five odd shapes with
-   partial tiles: K3's int32 outputs equal, its dequantized fp32 and bf16
-   outputs bit-equal; K4's absmax and int8 outputs bit-equal on fp32 and
-   bf16 inputs in both memory layouts (a frame range and exact half-way
-   ties on the odd shapes). K3's device time and bound (int8 tensor-core
-   rate) at every B; at B = 16 also the dequantizing entry's, the twin,
-   im2col + ``torch._int_mm``, the bf16 cuDNN convolution of the same
-   shape, K4 beside its bound and its twin, and the whole
-   ``layers.int8_conv`` against the parent's torch chain around K3's int32
-   entry (bit-equal; device and per-call times in turns);
+   forward) at B = 1, 16 and 128 windows and at ten odd shapes with
+   partial tiles (five on the halo loop: tiles cut at every border, C_in
+   2, 5 and 8, a stride-1 stem): K3's int32 outputs equal, its
+   dequantized fp32 and bf16 outputs bit-equal; K4's absmax and int8
+   outputs bit-equal on fp32 and bf16 inputs in both memory layouts (a
+   frame range and exact half-way ties on the odd shapes). K3's device
+   time and bound (int8 tensor-core rate) at every B; at B = 16 also the
+   dequantizing entry's, the twin, im2col + ``torch._int_mm``, the bf16
+   cuDNN convolution of the same shape, K4 beside its bound and its twin,
+   and the whole ``layers.int8_conv`` against the parent's torch chain
+   around K3's int32 entry (bit-equal; device and per-call times in
+   turns);
 5. three requests at the full width of ``ModelConfig()``, each crop ->
    log-mel (K1) -> align -> engine (K2 inside): R1 32 frames of 360x640 +
    2.2 s of PCM through ``score_probs``; R2 150 frames (10 s at 15 fps, 15
@@ -1264,7 +1266,7 @@ def parent_int8_conv(x, weight, bias, stride, padding):
 
 
 # Device-kernel names of K3 and K4, as the profiler reports them.
-K3_KERNELS = ("int8_conv_wgmma_kernel", "int8_conv_mma_kernel")
+K3_KERNELS = ("int8_conv_wgmma_kernel", "int8_conv_halo_kernel")
 K4_KERNELS = ("absmax_kernel", "quant_rows_kernel", "quant_transpose_kernel")
 
 
@@ -1310,7 +1312,8 @@ def bits(t):
 def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
     """K3 and K4 against their twins at every int8 encoder convolution of
     ``cfg`` (found by one int8 forward of one window) at B = 1, 16 and 128
-    windows, and at five odd shapes with partial tiles:
+    windows, and at ten odd shapes with partial tiles, each row naming its
+    main loop (``k3.main_loop``):
 
     - K3's int32 entry equal to its twin; its dequantizing entry bit-equal
       to its twin writing fp32 and bf16 (with a bias on the odd shapes);
@@ -1417,7 +1420,16 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
            ((2, 3, 9, 10, 3), (16, 2, 5, 3, 3), (1, 2, 1), (0, 2, 1)),
            ((3, 11, 9, 1), (8, 7, 7, 1), (2, 2), (3, 3)),
            ((2, 7, 5, 96), (16, 3, 3, 96), (2, 1), (1, 1)),
-           ((2, 3, 6, 6, 64), (136, 1, 1, 1, 64), (1, 2, 2), (0, 0, 0))]
+           ((2, 3, 6, 6, 64), (136, 1, 1, 1, 64), (1, 2, 2), (0, 0, 0)),
+           # The halo loop: partial tiles at every border (the last rows of
+           # each frame, of each batch item), C_in 2, 5 and 8, a row of
+           # output cut into tiles, C_out past one block of 64 channels, a
+           # stride-1 stem.
+           ((3, 5, 21, 23, 3), (16, 3, 7, 7, 3), (1, 2, 2), (1, 3, 3)),
+           ((2, 3, 17, 150, 2), (24, 2, 5, 3, 2), (1, 1, 2), (1, 2, 1)),
+           ((2, 9, 13, 8), (40, 3, 3, 8), (1, 2), (1, 1)),
+           ((2, 4, 15, 17, 3), (8, 3, 7, 7, 3), (1, 1, 1), (1, 3, 3)),
+           ((1, 3, 9, 300, 5), (136, 1, 3, 3, 5), (1, 1, 1), (0, 1, 1))]
     cases = [(i, b, (b, *g[0][1:]), *g[1:]) for b in (1, 16, 128)
              for i, g in enumerate(geoms)]
     cases += [(f"odd{i}", 0, *g) for i, g in enumerate(odd)]
@@ -1582,6 +1594,8 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
           "int8_convs_per_forward": calls[0],
           "wgmma_geometries": sum(k3.main_loop(g[0], g[1]) == "wgmma"
                                   for g in geoms),
+          "halo_geometries": sum(k3.main_loop(g[0], g[1]) == "halo"
+                                 for g in geoms),
           "all_equal": all(r["equal"] for r in rows.values())})
     for (name, b), r in rows.items():
         check(r["equal"], f"K3 vs twin at conv {name}, B={b}: "
@@ -3332,8 +3346,9 @@ def main() -> None:
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
-    # K3 at R2's bucket, on the encoder convolution with the most work (a
-    # stem, on mma.sync), and on the wgmma geometry with the most work.
+    # K3 at R2's bucket, on the encoder convolution with the most work (the
+    # visual stem, on the halo loop), and on the wgmma geometry with the
+    # most work.
     k3_16 = [r for (_, b), r in k3_rows.items() if b == 16]
     k3m, k3w = (max(rows, key=lambda r: r["m"] * r["n"] * r["k"])
                 for rows in (k3_16, [r for r in k3_16

@@ -26,18 +26,26 @@ Layouts are channels-last: activations ``(N, [D,] H, W, C_in)``, weights
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from lipsync_tpu_torch.ops.kernels import build
 
-# K per step of each main loop; the wrapper zero-pads the weights to it.
-K_STEP = {"mma.sync": 32, "wgmma": 128}
+# K bytes per step of both main loops; the wrapper zero-pads each weight
+# row to a multiple of it (the halo loop's K is over channels padded to 4).
+K_STEP = 128
 # K that the wgmma loop's table of K chunks holds; the wrappers refuse a
 # larger K there.
 WGMMA_MAX_K = 8192
+# Shared memory a block may use on an H100, and the GEMM rows per tile the
+# halo loop takes (3 or 2 warpgroups of 64 rows).
+SMEM_LIMIT = 232448
+HALO_ROWS = (192, 128)
 _OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 # Launches of the CUDA kernel in this process (the CPU twin does not count),
@@ -80,11 +88,13 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride, padding) -> int:
     if len(stride) != nd or len(padding) != nd:
         raise ValueError(f"stride {stride} / padding {padding} for {nd}-d")
     if main_loop(x.shape, w.shape) == "wgmma":
-        step = K_STEP["wgmma"]
-        kp = -(-_taps(w.shape) // step) * step
+        kp = -(-_taps(w.shape) // K_STEP) * K_STEP
         if kp > WGMMA_MAX_K:
             raise ValueError(f"K = {kp} (padded) is past the wgmma loop's "
                              f"tap table of {WGMMA_MAX_K}")
+    else:
+        x5, w5, s3, p3 = _as_3d(x.shape, w.shape, stride, padding)
+        halo_plan(x5, w5, s3, p3)
     return nd
 
 
@@ -123,8 +133,128 @@ def _taps(w_shape: Sequence[int]) -> int:
 
 def main_loop(x_shape: Sequence[int], w_shape: Sequence[int]) -> str:
     """The kernel's main loop for these shapes (channels-last, 2-d or 3-d):
-    ``"wgmma"`` when ``C_in % 32 == 0``, else ``"mma.sync"``."""
-    return "wgmma" if x_shape[-1] % 32 == 0 else "mma.sync"
+    ``"wgmma"`` when ``C_in % 32 == 0``, else ``"halo"``."""
+    return "wgmma" if x_shape[-1] % 32 == 0 else "halo"
+
+
+def _as_3d(x_shape, w_shape, stride, padding):
+    """2-d shapes as a 3-d convolution over one frame."""
+    if len(x_shape) == 4:
+        return ((x_shape[0], 1, *x_shape[1:]), (w_shape[0], 1, *w_shape[1:]),
+                (1, *stride), (0, *padding))
+    return tuple(x_shape), tuple(w_shape), tuple(stride), tuple(padding)
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloPlan:
+    """The halo loop's tile for one geometry: ``tr`` output rows x ``tw``
+    output columns of one frame (``tr * tw`` GEMM rows of at most 192), the
+    ``hr`` x ``hc`` input rows x columns of each of the kernel's ``kd``
+    frames that they read, and the shared memory of a block: B resident
+    (``kblocks`` blocks of 64 channels x 128 bytes), two widened halos
+    (``cw`` words per voxel), two slots of staged input rows (``rs`` bytes
+    each) with their row tables, and the tap table."""
+
+    cw: int
+    kwords: int
+    kblocks: int
+    tr: int
+    tw: int
+    hr: int
+    hc: int
+    rs: int
+    smem: int
+
+
+def _halo_smem(kd, kblocks, hr, hc, cw, rs) -> int:
+    def up16(v):
+        return -(-v // 16) * 16
+    return (1024 + kblocks * 64 * 128 + 2 * up16(4 * kd * hr * hc * cw)
+            + 2 * kd * hr * rs + 2 * up16(4 * kd * hr) + 128 * kblocks)
+
+
+@functools.lru_cache(maxsize=256)
+def halo_plan(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
+              stride: Tuple[int, ...], padding: Tuple[int, ...]) -> HaloPlan:
+    """The tile of the halo loop for 3-d channels-last shapes: of the tiles
+    whose shared memory fits, the one with the fewest GEMM rows in all
+    (tiles x rows per tile), first by 192 rows a tile, then 128, and by
+    the widest row. Raises ``ValueError`` when none fits."""
+    n, d, h, w, c = x_shape
+    _, kd, kh, kw, _ = w_shape
+    od, oh, ow = (out_size(*a) for a in zip((d, h, w), (kd, kh, kw), stride,
+                                            padding))
+    if min(n, od, oh, ow) <= 0:
+        raise ValueError(f"empty output for input {tuple(x_shape)}")
+    cw = -(-c // 4)
+    kwords = kd * kh * kw * cw
+    kblocks = -(-kwords // 32)
+    best = None
+    for rows in HALO_ROWS:
+        widths = sorted({-(-ow // nb) for nb in range(-(-ow // rows), ow + 1)},
+                        reverse=True)
+        for tw in widths:
+            hc = (tw - 1) * stride[2] + kw
+            rs = 16 * ((hc * c + 31) // 16)
+            for tr in range(max(1, min(oh, rows // tw)), 0, -1):
+                hr = (tr - 1) * stride[1] + kh
+                smem = _halo_smem(kd, kblocks, hr, hc, cw, rs)
+                if smem > SMEM_LIMIT:
+                    continue
+                tiles = n * od * -(-oh // tr) * -(-ow // tw)
+                if best is None or tiles * rows < best[0]:
+                    best = (tiles * rows, HaloPlan(cw, kwords, kblocks, tr,
+                                                   tw, hr, hc, rs, smem))
+                break
+    if best is None:
+        raise ValueError(
+            f"the halo loop does not fit in {SMEM_LIMIT} bytes of shared "
+            f"memory for input {tuple(x_shape)} and weights "
+            f"{tuple(w_shape)}: B alone takes {kblocks * 64 * 128} bytes")
+    return best[1]
+
+
+def halo_tap_offsets(plan: HaloPlan, w_shape: Sequence[int]) -> np.ndarray:
+    """K word q (tap q // cw, channel word q % cw, taps in (kd, kh, kw)
+    order) as its offset in words from a GEMM row's tap-0 word in the
+    halo: ``((td * hr + th) * hc + tw) * cw + q % cw``; 0 past K, where the
+    weights are zero. ``kblocks * 32`` int32 values."""
+    _, kd, kh, kw, _ = w_shape
+    q = np.arange(plan.kblocks * 32)
+    tap, j = q // plan.cw, q % plan.cw
+    td, th, tw = tap // (kh * kw), (tap // kw) % kh, tap % kw
+    off = ((td * plan.hr + th) * plan.hc + tw) * plan.cw + j
+    return np.where(q < plan.kwords, off, 0).astype(np.int32)
+
+
+def halo_row_base(plan: HaloPlan, stride: Sequence[int], r: int) -> int:
+    """GEMM row ``r`` of a tile (output row ``r // tw``, column ``r %
+    tw``) as the halo word of its tap 0."""
+    return ((r // plan.tw) * stride[1] * plan.hc
+            + (r % plan.tw) * stride[2]) * plan.cw
+
+
+def pack_halo_weights(w: torch.Tensor, plan: HaloPlan) -> torch.Tensor:
+    """3-d channels-last int8 weights ``(C_out, kD, kH, kW, C_in)`` as the
+    halo loop's B: channels zero-padded to ``4 * cw``, taps in (kd, kh,
+    kw) order, zero-padded to ``kblocks * 128`` bytes a row."""
+    cout, c = w.shape[0], w.shape[-1]
+    wp = F.pad(w, (0, 4 * plan.cw - c)).reshape(cout, 4 * plan.kwords)
+    return F.pad(wp, (0, K_STEP * plan.kblocks - 4 * plan.kwords)
+                 ).contiguous()
+
+
+_tables: Dict[Tuple, torch.Tensor] = {}
+
+
+def _halo_table(plan: HaloPlan, w_shape, device) -> torch.Tensor:
+    """:func:`halo_tap_offsets` on ``device``, copied there once."""
+    key = (plan, tuple(w_shape), str(device))
+    table = _tables.get(key)
+    if table is None:
+        table = _tables[key] = torch.from_numpy(
+            halo_tap_offsets(plan, w_shape)).to(device)
+    return table
 
 
 def int8_conv_int32(x: torch.Tensor, w: torch.Tensor,
@@ -185,13 +315,22 @@ def _launch(x, w, scale, bias, out_dtype, stride, padding) -> torch.Tensor:
     if min(n, od, oh, ow) <= 0:
         raise ValueError(f"empty output for input {tuple(x.shape)}")
     loop = main_loop(x.shape, w.shape)
-    if loop == "wgmma" and x.data_ptr() % 16:  # a view into another tensor
+    if x.data_ptr() % 16:  # a view into another tensor
         x = x.clone()
-    k = kd * kh * kw * c
-    kp = -(-k // K_STEP[loop]) * K_STEP[loop]
-    wp = F.pad(w.reshape(cout, k), (0, kp - k)).contiguous()
     out = torch.empty((n, od, oh, ow, cout), dtype=out_dtype,
                       device=x.device)
+    if loop == "wgmma":
+        k = kd * kh * kw * c
+        kp = -(-k // K_STEP) * K_STEP
+        wp = F.pad(w.reshape(cout, k), (0, kp - k)).contiguous()
+        tr = tw = 0
+        table = None
+    else:
+        plan = halo_plan(tuple(x.shape), tuple(w.shape), tuple(stride),
+                         tuple(padding))
+        wp = pack_halo_weights(w, plan)
+        kp, tr, tw = wp.shape[1], plan.tr, plan.tw
+        table = _halo_table(plan, w.shape, x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -200,7 +339,8 @@ def _launch(x, w, scale, bias, out_dtype, stride, padding) -> torch.Tensor:
             None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(), _OUT_KINDS[out_dtype],
             n, d, h, wd, c, kd, kh, kw, *stride, *padding, od, oh, ow, cout,
-            kp, int(loop == "wgmma"), stream)
+            kp, int(loop == "wgmma"), tr, tw,
+            None if table is None else table.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: cudaError {err}")
     with build.COUNT_LOCK:
@@ -213,7 +353,7 @@ def _launch(x, w, scale, bias, out_dtype, stride, padding) -> torch.Tensor:
 def _library() -> ctypes.CDLL:
     lib = build.library("int8_conv")
     fn = lib.lipsync_int8_conv
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 21 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 23 + [
+        ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return lib

@@ -16,10 +16,12 @@ against the JAX package and against the unfused torch chain that
   within 1e-6 relative of JAX's ``Int8Conv`` at ``C_in % 32 == 0``
   geometries (the ones K3 runs on ``wgmma``), with and without bias;
 - the geometry picks K3's main loop: 22 of ``ModelConfig()``'s 24 int8
-  convolutions take ``wgmma``, the two stems ``mma.sync``;
+  convolutions take ``wgmma``, the two stems ``halo``
+  (``tests/test_torch_int8_stem.py`` holds that loop's host half);
 - the wrappers raise on a wrong dtype, ``C_out % 8``, mismatched channels
-  or devices, a K past the ``wgmma`` loop's tap table and an unsupported
-  layout; a CPU tensor takes the twins and
+  or devices, a K past the ``wgmma`` loop's tap table, a halo tile that
+  does not fit in shared memory and an unsupported layout; a CPU tensor
+  takes the twins and
   launches nothing.
 """
 
@@ -224,7 +226,7 @@ def test_main_loop_follows_the_geometry():
     assert len(loops) == 24
     assert loops.count("wgmma") == 22
     assert sorted(c.in_channels for c, lp in zip(convs, loops)
-                  if lp == "mma.sync") == [1, 3]
+                  if lp == "halo") == [1, 3]
 
 
 def _i8(*shape):
@@ -244,6 +246,9 @@ GUARDS = {
         ValueError),
     "k3_k_past_the_wgmma_tap_table": (lambda: k3.int8_conv_int32(
         _i8(1, 4, 4, 4, 512), _i8(8, 3, 3, 3, 512), (1, 1, 1), (1, 1, 1)),
+        ValueError),
+    "k3_halo_past_shared_memory": (lambda: k3.int8_conv_int32(
+        _i8(1, 4, 12, 12, 12), _i8(8, 7, 7, 7, 12), (1, 1, 1), (3, 3, 3)),
         ValueError),
     "k3_int_out_dtype": (lambda: k3.int8_conv_dequant(
         _i8(1, 4, 4, 32), _i8(8, 3, 3, 32), torch.ones(8), None,
