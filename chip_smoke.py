@@ -29,15 +29,21 @@ each printed as one JSON line:
    forward) at B = 1, 16 and 128 windows and at ten odd shapes with
    partial tiles (five on the halo loop: tiles cut at every border, C_in
    2, 5 and 8, a stride-1 stem): K3's int32 outputs equal, its
-   dequantized fp32 and bf16 outputs bit-equal; K4's absmax and int8
-   outputs bit-equal on fp32 and bf16 inputs in both memory layouts (a
-   frame range and exact half-way ties on the odd shapes). K3's device
-   time and bound (int8 tensor-core rate) at every B; at B = 16 also the
-   dequantizing entry's, the twin, im2col + ``torch._int_mm``, the bf16
-   cuDNN convolution of the same shape, K4 beside its bound and its twin,
-   and the whole ``layers.int8_conv`` against the parent's torch chain
-   around K3's int32 entry (bit-equal; device and per-call times in
-   turns);
+   dequantized fp32 and bf16 outputs bit-equal; K4's single launch
+   (``absmax_quantize``: int8 values, scale and K3's scale vector) and its
+   two-launch ``absmax`` and ``quantize`` bit-equal to their twins on fp32
+   and bf16 inputs in both memory layouts (on the odd shapes also a frame
+   range, exact half-way ties, an input holding a NaN (scale NaN) and one
+   holding -inf); the widths that K3 refuses as they are (C_out 100, C_in
+   200 and 320 at layer4 of B = 16) through ``layers.int8_conv``,
+   bit-equal to the same call with the twins in the kernels' places. K3's
+   device time and bound (int8 tensor-core rate) at every B; at B = 16
+   also the dequantizing entry's, the twin, im2col + ``torch._int_mm``,
+   the bf16 cuDNN convolution of the same shape, K4's single launch
+   against its old pair in turns (per call and device time) beside its
+   bound and its twin, and the whole ``layers.int8_conv`` against the
+   parent's torch chain around K3's int32 entry (bit-equal; device and
+   per-call times in turns);
 5. three requests at the full width of ``ModelConfig()``, each crop ->
    log-mel (K1) -> align -> engine (K2 inside): R1 32 frames of 360x640 +
    2.2 s of PCM through ``score_probs``; R2 150 frames (10 s at 15 fps, 15
@@ -106,7 +112,7 @@ each printed as one JSON line:
    ``quantized_int8``, each as a bf16 ``Predictor`` and an fp32 engine
    from ``load_engine`` on the calibrated weights, on S, L and (fp32) R1-R3.
    K1 in every run; K2 in every run but the fold's and none under the fold;
-   K3 and K4 only in the int8 engine's runs, 24 and 48 launches per
+   K3 and K4 only in the int8 engine's runs, 24 launches each per
    forward. Shared: L's window probabilities finite, a one-window track
    within 1e-5 of the per-window engine in fp32. Fold: fp32 |dprob| <=
    1e-3 against the unfolded engine on seeded weights (the JAX package's
@@ -117,7 +123,8 @@ each printed as one JSON line:
    median of 5;
 10. data parallelism (``data_parallel``): the engine over two shards on
    the one card against one device (default, shared encoding, int8 with
-   its lockstep scales: K2 2, K3 48 and K4 96 launches per bucket), the
+   its lockstep scales: K2 2, K3 48 and K4 96 launches per bucket: the
+   shards take K4's two-launch entries), the
    bf16 ``Predictor`` over that mesh, and the trainer as an NCCL world of
    one, each checked against its one-device run; TF32 on vs off as a
    reading.
@@ -333,7 +340,8 @@ def kernel_inputs(seen: dict):
 
     saved = (k1.log_mel_db, artifact_mod.hf_stem,
              layers_mod.int8_conv_dequant, layers_mod.absmax,
-             layers_mod.quantize)
+             layers_mod.quantize, layers_mod.absmax_quantize,
+             layers_mod.int8_conv_int32)
 
     def logged(name, fn, key=lambda x, *args: shape_key(x)):
         def call(x, *args, **kwargs):
@@ -346,11 +354,14 @@ def kernel_inputs(seen: dict):
     layers_mod.int8_conv_dequant = logged("int8_conv", saved[2], k3_key)
     layers_mod.absmax = logged("int8_quant", saved[3], k4_key)
     layers_mod.quantize = logged("int8_quant", saved[4], k4_key)
+    layers_mod.absmax_quantize = logged("int8_quant", saved[5], k4_key)
+    layers_mod.int8_conv_int32 = logged("int8_conv", saved[6], k3_int32_key)
     try:
         yield
     finally:
         (k1.log_mel_db, artifact_mod.hf_stem, layers_mod.int8_conv_dequant,
-         layers_mod.absmax, layers_mod.quantize) = saved
+         layers_mod.absmax, layers_mod.quantize, layers_mod.absmax_quantize,
+         layers_mod.int8_conv_int32) = saved
 
 
 def shape_key(x) -> tuple:
@@ -370,9 +381,17 @@ def k3_key(x, w, scale, bias, out_dtype, stride, padding) -> tuple:
             str(out_dtype).removeprefix("torch."))
 
 
+def k3_int32_key(x, w, stride, padding) -> tuple:
+    """An input of K3's int32 entry: its geometry, and that it writes
+    int32."""
+    return (*conv_key(x, w, stride, padding), False, "int32")
+
+
 def k4_key(x, arg=None) -> tuple:
-    """An input of K4 (``absmax(x, frames)`` or ``quantize(x, scale)``):
-    shape, dtype, memory layout, and whether absmax read a frame range."""
+    """An input of K4 (``absmax(x, frames)``, ``quantize(x, scale)`` or
+    ``absmax_quantize(x, w_scale)``): shape, dtype, memory layout, and
+    whether absmax read a frame range. The single launch and the pair
+    share a key, and phase 4b holds both on each key it checks."""
     from lipsync_tpu_torch.ops.kernels import int8_quant as k4
 
     return (*shape_key(x), k4.layout_of(x), isinstance(arg, tuple))
@@ -1267,7 +1286,8 @@ def parent_int8_conv(x, weight, bias, stride, padding):
 
 # Device-kernel names of K3 and K4, as the profiler reports them.
 K3_KERNELS = ("int8_conv_wgmma_kernel", "int8_conv_halo_kernel")
-K4_KERNELS = ("absmax_kernel", "quant_rows_kernel", "quant_transpose_kernel")
+K4_PAIR = ("absmax_kernel", "quant_rows_kernel", "quant_transpose_kernel")
+K4_KERNELS = ("absmax_quantize_kernel", *K4_PAIR)
 
 
 def device_ms(fn, kernels=None, iters: int = 10) -> float:
@@ -1309,7 +1329,17 @@ def bits(t):
                                                       t.dtype))
 
 
-def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
+def same_float(a, b) -> bool:
+    """``a`` and ``b`` bit for bit, a NaN matching any NaN."""
+    import torch
+
+    na, nb = a.isnan(), b.isnan()
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        bits(torch.where(na, 0, a)), bits(torch.where(nb, 0, b))))
+
+
+def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
+             plain_int8) -> dict:
     """K3 and K4 against their twins at every int8 encoder convolution of
     ``cfg`` (found by one int8 forward of one window) at B = 1, 16 and 128
     windows, and at ten odd shapes with partial tiles, each row naming its
@@ -1317,15 +1347,21 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
 
     - K3's int32 entry equal to its twin; its dequantizing entry bit-equal
       to its twin writing fp32 and bf16 (with a bias on the odd shapes);
-    - K4's absmax and quantize equal to their twins, bit for bit, on the
+    - K4's single launch (int8 values, scale, K3's scale vector) and its
+      absmax and quantize equal to their twins, bit for bit, on the
       convolution's input as fp32 and bf16, channels-last and
-      channels-first; on the odd shapes also absmax over a frame range and
-      quantize at exact half-way ties.
+      channels-first; on the odd shapes also absmax over a frame range,
+      exact half-way ties, and inputs holding a NaN and a -inf;
+    - the widths K3 refuses as they are (C_out 100, C_in 200 and 320 at
+      layer4 of B = 16) through ``layers.int8_conv``, bit-equal to the
+      same call with the twins in the kernels' places (``plain_int8``).
 
     At B = 16: K3 (int32 out, and dequantized to fp32 and bf16) beside its
     bound, its twin, im2col + ``torch._int_mm`` and the bf16 cuDNN
-    convolution of the same shape; K4 on the fp32 channels-last input
-    beside its bound and its twin (the torch chain it replaces); and the
+    convolution of the same shape; K4's single launch on the fp32
+    channels-last input against the old absmax + quantize pair in turns
+    (pair, single, single, pair), beside its bound and its twin (the torch
+    chain it replaces); and the
     whole int8 convolution, ``layers.int8_conv``, against the parent's
     torch chain around K3's int32 entry (:func:`parent_int8_conv`), equal
     bit for bit and timed in turns. Each time is taken twice: ``*_ms`` per
@@ -1343,7 +1379,7 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
     from lipsync_tpu_torch.ops.kernels import int8_conv as k3
     from lipsync_tpu_torch.ops.kernels import int8_quant as k4
 
-    geoms, calls = [], [0]
+    geoms, calls, per_forward = [], [0], {}
     real = layers_mod.int8_conv_dequant
 
     def discover(x, w, scale, bias, out_dtype, stride, padding):
@@ -1351,6 +1387,7 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
         key = conv_key(x, w, stride, padding)
         if key not in geoms:
             geoms.append(key)
+        per_forward[key] = per_forward.get(key, 0) + 1
         return real(x, w, scale, bias, out_dtype, stride, padding)
 
     model = LipSyncModel(dataclasses.replace(cfg, conv_lowering="int8"))
@@ -1400,21 +1437,32 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
         return {"channels_last": cl, "channels_first": cl.contiguous()}
 
     def k4_check(x, frames=None, scale=None):
-        """K4 vs its twins on ``x``: absmax's and quantize's outputs bit
-        for bit, and the largest |difference| of the int8 values."""
+        """K4 vs its twins on ``x``: the single launch's int8 values,
+        scale and scale vector (on a random ``w_scale``), absmax's and
+        quantize's outputs, bit for bit (a NaN scale matching a NaN), and
+        the largest |difference| of the int8 values."""
         m = k4.absmax(x, frames)
         m_twin = k4.absmax_plain(x, frames)
         if scale is None:
             scale = torch.clamp(m_twin * layers_mod._INV_127, min=1e-12)
         q, q_twin = k4.quantize(x, scale), k4.quantize_plain(x, scale)
+        w_scale = torch.rand(x.shape[1], generator=gen, device=dev)
+        fused = k4.absmax_quantize(x, w_scale)
+        twin = k4.absmax_quantize_plain(x, w_scale)
         torch.cuda.synchronize()
         key = (tuple(x.shape), str(x.dtype).removeprefix("torch."),
                k4.layout_of(x))
         checked["int8_quant"].update({(*key, False), (*key, frames
                                                        is not None)})
-        return {"absmax_equal": bool(torch.equal(bits(m), bits(m_twin))),
+        return {"absmax_equal": same_float(m, m_twin),
                 "quantize_equal": bool(torch.equal(q, q_twin)),
-                "max_abs_err": int((q.int() - q_twin.int()).abs().max())}
+                "fused_equal": bool(torch.equal(fused[0], twin[0]))
+                and same_float(fused[1], twin[1])
+                and same_float(fused[2], twin[2]),
+                "fused_scale": float(fused[1]),
+                "max_abs_err": max(
+                    int((q.int() - q_twin.int()).abs().max()),
+                    int((fused[0].int() - twin[0].int()).abs().max()))}
 
     odd = [((3, 5, 13, 11, 32), (24, 3, 3, 3, 32), (1, 2, 2), (1, 1, 1)),
            ((2, 3, 9, 10, 3), (16, 2, 5, 3, 3), (1, 2, 1), (0, 2, 1)),
@@ -1467,13 +1515,23 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
             del xf
         if b == 0:  # exact half-way ties at a scale of 1, and clamping
             ties = (torch.randint(-127, 127, x_shape, generator=gen,
-                                  device=dev) + 0.5).movedim(-1, 1)
+                                  device=dev) + 0.5)
+            ties[(0,) * ties.dim()] = 127.0  # the single launch's scale: 1
+            ties = ties.movedim(-1, 1)
             ones = torch.ones((), device=dev)
             for dt in dtypes:
                 quant_equal[f"ties {dt}"] = k4_check(ties.to(dt),
                                                      scale=ones)
                 quant_equal[f"clamp {dt}"] = k4_check(
                     (ties * 3).to(dt), scale=ones)
+            # A NaN makes the scale NaN (torch.clamp keeps it) and every
+            # int8 value 0; a -inf makes it +inf.
+            for value in ("nan", "-inf"):
+                odd_x = activations(x_shape)["channels_last"]
+                odd_x[(0,) * odd_x.dim()] = float(value)
+                for dt in dtypes:
+                    quant_equal[f"{value} {dt}"] = k4_check(odd_x.to(dt))
+                del odd_x
         m, n, kk = k3.gemm_dims(x_shape, w_shape, stride, padding)
         ops = 2.0 * m * n * kk
         bms, bby = bound_ms(x.numel() + w.numel() + 4 * got.numel(), ops,
@@ -1526,26 +1584,38 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
             row["bf16_cudnn_ms"] = time_ms(cudnn, iters=10)
             row["bf16_cudnn_device_ms"] = device_ms(cudnn)
             del xb, wb
-            # K4 on the main path's input: fp32, channels-last. Its bound
-            # reads x once and writes the int8 copy once.
+            # K4 on the main path's input: fp32, channels-last, the single
+            # launch against the old pair in turns (pair, single, single,
+            # pair). Its bound reads x once and writes the int8 copy once.
             xf = activations(x_shape)["channels_last"]
-            sc = torch.clamp(k4.absmax_plain(xf) * layers_mod._INV_127,
-                             min=1e-12)
-            k4_twin = lambda: k4.quantize_plain(  # noqa: E731
-                xf, torch.clamp(k4.absmax_plain(xf) * layers_mod._INV_127,
-                                min=1e-12))
-            for timer, timed in (("ms", lambda fn: time_ms(fn, iters=10)),
-                                 ("device_ms",
-                                  lambda fn: device_ms(fn, K4_KERNELS))):
-                row[f"k4_absmax_{timer}"] = timed(lambda: k4.absmax(xf))
-                row[f"k4_quantize_{timer}"] = timed(
-                    lambda: k4.quantize(xf, sc))
-                row[f"k4_{timer}"] = (row[f"k4_absmax_{timer}"]
-                                      + row[f"k4_quantize_{timer}"])
+            ws = torch.rand(cout, generator=gen, device=dev)
+
+            def k4_pair():
+                sc = torch.clamp(k4.absmax(xf) * layers_mod._INV_127,
+                                 min=1e-12)
+                return k4.quantize(xf, sc), sc * ws
+
+            k4_fused = lambda: k4.absmax_quantize(xf, ws)  # noqa: E731
+            k4_twin = lambda: k4.absmax_quantize_plain(xf, ws)  # noqa: E731
+            for timer, timed in (
+                    ("ms", lambda fn, _: time_ms(fn, iters=10)),
+                    ("device_ms", lambda fn, names: device_ms(fn, names))):
+                p_a = timed(k4_pair, K4_PAIR)
+                f_a = timed(k4_fused, K4_KERNELS[:1])
+                f_b = timed(k4_fused, K4_KERNELS[:1])
+                p_b = timed(k4_pair, K4_PAIR)
+                row[f"k4_turns_{timer}"] = [f_a, f_b]
+                row[f"k4_pair_turns_{timer}"] = [p_a, p_b]
+                row[f"k4_{timer}"] = (f_a + f_b) / 2
+                row[f"k4_pair_{timer}"] = (p_a + p_b) / 2
             row["k4_plain_ms"] = time_ms(k4_twin, iters=10)
             row["k4_plain_device_ms"] = device_ms(k4_twin)
             row["k4_bound_ms"], row["k4_bound_by"] = bound_ms(
                 5 * xf.numel(), 0.0)
+            row["k4_device_bound_share"] = (row["k4_bound_ms"]
+                                            / row["k4_device_ms"])
+            row["k4_pair_device_bound_share"] = (
+                row["k4_bound_ms"] / row["k4_pair_device_ms"])
             # The whole int8 convolution, fused against the parent's chain
             # (in turns: fused, parent, parent, fused), on float weights.
             wf = randn(cout, *w_shape[-1:], *w_shape[1:-1], scale=0.05)
@@ -1586,12 +1656,61 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
             del xf, wf
         rows[name, b] = row
         del x, w, got, want
+    # The widths K3 refuses as they are: layer4 at B = 16 with C_out 100,
+    # C_in 200 and C_in 320, through layers.int8_conv, against the same
+    # call with the twins in the kernels' places.
+    c1_convs = {
+        "cout_100": ((16, 32, 6, 6, 256), (100, 3, 3, 3, 256), (1, 2, 2),
+                     (1, 1, 1)),
+        "cin_200": ((16, 32, 3, 3, 200), (200, 3, 3, 3, 200), (1, 1, 1),
+                    (1, 1, 1)),
+        "cin_320": ((16, 32, 3, 3, 320), (320, 3, 3, 3, 320), (1, 1, 1),
+                    (1, 1, 1)),
+    }
+    c1 = {}
+    for name, (x_shape, w_shape, stride, padding) in c1_convs.items():
+        xf = activations(x_shape)["channels_last"]
+        wf = randn(w_shape[0], w_shape[-1], *w_shape[1:-1], scale=0.05)
+        for dt in dtypes:
+            bias = randn(w_shape[0]) if dt == torch.bfloat16 else None
+            before = k3.launches, k4.launches
+            got = layers_mod.int8_conv(xf.to(dt), wf, bias, stride, padding)
+            torch.cuda.synchronize()
+            launched = [k3.launches - before[0], k4.launches - before[1]]
+            with plain_int8():
+                want = layers_mod.int8_conv(xf.to(dt), wf, bias, stride,
+                                            padding)
+            torch.cuda.synchronize()
+            c1[f"{name} {dt}"] = {
+                "x": list(x_shape), "w": list(w_shape),
+                "bias": bias is not None, "shape": list(got.shape),
+                "equal": bool(torch.equal(bits(got), bits(want))),
+                "launches_k3_k4": launched,
+                "twin_launches_k3_k4": [k3.launches - before[0]
+                                        - launched[0],
+                                        k4.launches - before[1]
+                                        - launched[1]]}
+            del got, want
+        del xf, wf
     torch.cuda.empty_cache()
     for b in (1, 16, 128, 0):
         emit({"phase": "k3_int8_conv", "batch": b or "odd",
               "rows": [r for (_, bb), r in rows.items() if bb == b]})
+    emit({"phase": "k3_int8_widths", "convs": c1})
+    # K4's device time over one int8 forward at B = 16: each geometry's
+    # time times its convolutions per forward.
+    k4_forward = {
+        key: sum(per_forward[geoms[i]] * r[f"{key}_device_ms"]
+                 for (i, bb), r in rows.items() if bb == 16)
+        for key in ("k4", "k4_pair")}
+    summary = {
+        "k4_device_ms_per_forward": k4_forward["k4"],
+        "k4_pair_device_ms_per_forward": k4_forward["k4_pair"],
+        "k4_bound_ms_per_forward": sum(
+            per_forward[geoms[i]] * r["k4_bound_ms"]
+            for (i, bb), r in rows.items() if bb == 16)}
     emit({"phase": "k3_int8_conv_summary", "geometries": len(geoms),
-          "int8_convs_per_forward": calls[0],
+          "int8_convs_per_forward": calls[0], **summary,
           "wgmma_geometries": sum(k3.main_loop(g[0], g[1]) == "wgmma"
                                   for g in geoms),
           "halo_geometries": sum(k3.main_loop(g[0], g[1]) == "halo"
@@ -1604,13 +1723,18 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked) -> dict:
               f"K3 dequantized vs twin at conv {name}, B={b}: "
               f"{r['fused_equal']}")
         check(all(v["absmax_equal"] and v["quantize_equal"]
-                  for v in r["k4_equal"].values()),
+                  and v["fused_equal"] for v in r["k4_equal"].values()),
               f"K4 vs twin at conv {name}, B={b}: {r['k4_equal']}")
         if "whole" in r:
             check(all(v for k, v in r["whole"].items() if "equal" in k),
                   f"fused int8 conv vs the parent's chain at {name}: "
                   f"{r['whole']}")
-    return rows
+    for name, r in c1.items():
+        check(r["equal"] and r["launches_k3_k4"][0] >= 1
+              and r["launches_k3_k4"][1] == 1
+              and r["twin_launches_k3_k4"] == [0, 0],
+              f"int8 conv at a width K3 refuses as it is, {name}: {r}")
+    return rows, summary
 
 
 def serving_phase(dev, cfg, weights, record) -> dict:
@@ -2049,7 +2173,7 @@ def options_phase(dev, cfg, weight_sets, requests, serve, eng32, seeded32,
                   f"K2 launches under {name} {dtype} {run}: {row}")
             check(n3 == (int8_convs * f if name == "int8" else 0),
                   f"K3 launches under {name} {dtype} {run}: {row}")
-            check(n4 == (2 * int8_convs * f if name == "int8" else 0),
+            check(n4 == (int8_convs * f if name == "int8" else 0),
                   f"K4 launches under {name} {dtype} {run}: {row}")
         c = cmp["shared"]
         check(c["L_window_probs_finite"], f"shared L: {c}")
@@ -2124,6 +2248,7 @@ def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
         Predictor,
         PredictorConfig,
     )
+    from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import hf_stem as k2
     from lipsync_tpu_torch.ops.kernels import int8_conv as k3
     from lipsync_tpu_torch.ops.kernels import int8_quant as k4
@@ -2203,14 +2328,20 @@ def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
     # int8: the shards reduce each activation scale in lockstep
     single, sharded = pair(quantized_int8=True)
     scales = []
-    real_max = mesh_lib.all_max
+    real_max, real_fused = mesh_lib.all_max, layers_mod.absmax_quantize
 
-    def spy(value):
+    def spy(value):  # a shard: the scale of the max over both shards
         result = real_max(value)
-        scales.append(float(result))
+        scales.append(float(torch.clamp(result * k4.INV_127, min=1e-12)))
         return result
 
-    mesh_lib.all_max = spy  # one device: each scale is its own abs-max
+    def spy_fused(x, w_scale=None):  # one device: K4's single launch
+        result = real_fused(x, w_scale)
+        scales.append(float(result[1]))
+        return result
+
+    mesh_lib.all_max = spy
+    layers_mod.absmax_quantize = spy_fused
     try:
         for n in (1, 32):
             want = single.score_logits(windows[:n], aw3[:n])
@@ -2227,7 +2358,7 @@ def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
                 "shards": scales[:2], "one_device": one_device}
             scales.clear()
     finally:
-        mesh_lib.all_max = real_max
+        mesh_lib.all_max, layers_mod.absmax_quantize = real_max, real_fused
     del single, sharded
 
     # (b) the predictor over the mesh, bf16
@@ -3170,16 +3301,20 @@ def main() -> None:
     @contextlib.contextmanager
     def plain_int8():
         """The int8 lowering with the twins in K3's and K4's places."""
-        saved = (layers_mod.int8_conv_dequant, layers_mod.absmax,
-                 layers_mod.quantize)
+        saved = (layers_mod.int8_conv_dequant, layers_mod.int8_conv_int32,
+                 layers_mod.absmax, layers_mod.quantize,
+                 layers_mod.absmax_quantize)
         layers_mod.int8_conv_dequant = k3.int8_conv_dequant_plain
+        layers_mod.int8_conv_int32 = k3.int8_conv_plain
         layers_mod.absmax = k4.absmax_plain
         layers_mod.quantize = k4.quantize_plain
+        layers_mod.absmax_quantize = k4.absmax_quantize_plain
         try:
             yield
         finally:
-            (layers_mod.int8_conv_dequant, layers_mod.absmax,
-             layers_mod.quantize) = saved
+            (layers_mod.int8_conv_dequant, layers_mod.int8_conv_int32,
+             layers_mod.absmax, layers_mod.quantize,
+             layers_mod.absmax_quantize) = saved
 
     def track_inputs(req):
         """A track request's crops and aligned mel windows, as ``serve``
@@ -3206,7 +3341,8 @@ def main() -> None:
     del cal_visual, cal_audio
 
     # ── 4b. K3 vs its twin at every int8 encoder convolution ──────────
-    k3_rows = k3_phase(dev, cfg, seeded, time_ms, bound_ms, checked)
+    k3_rows, k3_summary = k3_phase(dev, cfg, seeded, time_ms, bound_ms,
+                                   checked, plain_int8)
 
     engines = {name: (ScoringEngine(w, cfg),  # bf16 on CUDA by default
                       ScoringEngine(w, cfg, use_bfloat16=False))
@@ -3438,17 +3574,27 @@ def main() -> None:
          "launches_data_parallel_by_device":
              dp_launches["by_device"]["int8_quant"],
          "launches_completion": completion_launches["int8_quant"],
-         # absmax + quantize of K3's input above, fp32 channels-last
+         # the single launch on K3's input above, fp32 channels-last; the
+         # old absmax + quantize pair in turns with it under "pair_ms"
          "shape": [k3m["x"][0], k3m["x"][-1], *k3m["x"][1:-1]],
          "max_abs_err": max(v["max_abs_err"]
                             for v in k3m["k4_equal"].values()),
          "timer": "cuda events per call, host launch included",
          "ms": k3m["k4_ms"], "plain_ms": k3m["k4_plain_ms"],
+         "pair_ms": k3m["k4_pair_ms"],
          "bound_ms": k3m["k4_bound_ms"], "bound_by": k3m["k4_bound_by"],
          "bound_basis": SIMT,
          "device": {"timer": "torch.profiler kernel time",
                     "ms": k3m["k4_device_ms"],
-                    "plain_ms": k3m["k4_plain_device_ms"]},
+                    "plain_ms": k3m["k4_plain_device_ms"],
+                    "pair_ms": k3m["k4_pair_device_ms"],
+                    "bound_share": k3m["k4_device_bound_share"],
+                    # over the 24 int8 convolutions of one forward, B = 16
+                    "per_forward_ms": k3_summary["k4_device_ms_per_forward"],
+                    "pair_per_forward_ms":
+                        k3_summary["k4_pair_device_ms_per_forward"],
+                    "bound_per_forward_ms":
+                        k3_summary["k4_bound_ms_per_forward"]},
          # no single PyTorch call; plain_ms is the torch chain it replaces
          "library_ms": None},
     ]})

@@ -24,13 +24,20 @@ import contextlib
 import threading
 from typing import Iterator, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lipsync_tpu_torch.ops.kernels.int8_conv import int8_conv_dequant
+from lipsync_tpu_torch.ops.kernels import int8_conv as int8_conv_k3
+from lipsync_tpu_torch.ops.kernels.int8_conv import (
+    int8_conv_dequant,
+    int8_conv_int32,
+)
 from lipsync_tpu_torch.ops.kernels.int8_quant import (
+    INV_127,
     absmax,
+    absmax_quantize,
     quantize,
     quantize_int8,
 )
@@ -205,12 +212,9 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-# 1/127 rounded to float32. XLA compiles the JAX package's ``max / 127.0``
-# into a multiplication by this reciprocal, which rounds a scale differently
-# from a true division in some channels and so moves values that sit near a
-# half step of the grid; the port multiplies too, to quantize as the
-# compiled JAX package does.
-_INV_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+# 1/127 rounded to float32, as the compiled JAX package multiplies by it
+# (``ops/kernels/int8_quant.py`` says why).
+_INV_127 = INV_127
 
 
 def int8_conv(
@@ -225,32 +229,98 @@ def int8_conv(
     ``x``, torch weight layout). Weights quantize per output channel
     (``max|w| / 127`` as a product with ``_INV_127``, floored at 1e-12),
     activations per *tensor* over the whole batch (every shard of an
-    in-process mesh), symmetric. On a CUDA tensor K4 takes ``max|x|``
-    (:func:`absmax`) and, once ``all_max`` has reduced the scale over the
-    shards, writes the int8 activation channels-last (:func:`quantize`);
-    K3 convolves int8 x int8 -> int32 and dequantizes in its epilogue as
-    ``acc * (x_scale * w_scale)`` plus the bias, in fp32, written in
-    ``x``'s dtype (:func:`int8_conv_dequant`): no elementwise torch pass
-    over the activation or the output. A CPU tensor takes the twins of
-    each. Because the activation scale is per tensor, a window's
-    quantization grid depends on its batch-mates, as in the JAX package.
-    Inference only: K3 has no backward. Returns the channels-last result
-    as a channels-first view."""
+    in-process mesh), symmetric. On a CUDA tensor K4 writes the int8
+    activation channels-last: outside a mesh in one launch that also
+    computes the scale and K3's epilogue scale (:func:`absmax_quantize`);
+    in a mesh's shard as ``max|x|`` over the frames it owns
+    (:func:`absmax`), reduced over the shards by ``all_max``, then
+    :func:`quantize`. K3 convolves int8 x int8 -> int32 and dequantizes in
+    its epilogue as ``acc * (x_scale * w_scale)`` plus the bias, in fp32,
+    written in ``x``'s dtype (:func:`int8_conv_dequant`): no elementwise
+    torch pass over the activation or the output. A CPU tensor takes the
+    twins of each, by the same route. Because the activation scale is per
+    tensor, a window's quantization grid depends on its batch-mates, as in
+    the JAX package. Inference only: K3 has no backward. Returns the
+    channels-last result as a channels-first view.
+
+    Every width that the JAX package computes runs (:func:`_k3_geometry`
+    says how a convolution that K3 refuses is reshaped, exactly)."""
     w32 = weight.float()
     w_scale = torch.clamp(
         w32.abs().amax(dim=tuple(range(1, w32.dim()))) * _INV_127,
         min=1e-12)
-    # Over every in-process shard of the batch (one value outside a mesh);
-    # a frame-sharded encode counts only the frames each shard owns.
-    x_scale = torch.clamp(
-        mesh_lib.all_max(absmax(x, mesh_lib.frame_core())) * _INV_127,
-        min=1e-12)
     w_q = quantize_int8(w32, w_scale.view(-1, *[1] * (w32.dim() - 1)))
-    y = int8_conv_dequant(quantize(x, x_scale),
-                          w_q.movedim(1, -1).contiguous(), x_scale * w_scale,
-                          None if bias is None else bias.float(), x.dtype,
-                          stride, padding)
+    w_q = w_q.movedim(1, -1)
+    cout = w_q.shape[0]
+    extra = -cout % 8
+    if bias is not None:
+        bias = bias.float()
+    if extra:  # K3 writes C_out in multiples of 8: zero rows, cut below
+        w_q = F.pad(w_q, (0, 0) * (w_q.dim() - 1) + (0, extra))
+        w_scale = F.pad(w_scale, (0, extra))
+        if bias is not None:
+            bias = F.pad(bias, (0, extra))
+    core = mesh_lib.frame_core()
+    if core is None and not mesh_lib.in_lockstep():
+        x_q, _, scale = absmax_quantize(x, w_scale)
+    else:
+        # Over every in-process shard of the batch; a frame-sharded encode
+        # counts only the frames each shard owns.
+        x_scale = torch.clamp(
+            mesh_lib.all_max(absmax(x, core)) * _INV_127, min=1e-12)
+        x_q = quantize(x, x_scale)
+        scale = x_scale * w_scale
+    groups, width = _k3_geometry(tuple(x_q.shape), tuple(w_q.shape),
+                                 stride, padding)
+    if groups == 1:
+        if width != x_q.shape[-1]:
+            x_q, w_q = _pad_channels(x_q, width), _pad_channels(w_q, width)
+        y = int8_conv_dequant(x_q, w_q.contiguous(), scale, bias, x.dtype,
+                              stride, padding)
+    else:  # channel groups of at most ``width``, summed exactly in int32
+        acc = None
+        for lo in range(0, x_q.shape[-1], width):
+            hi = min(lo + width, x_q.shape[-1])
+            part = int8_conv_int32(_pad_channels(x_q[..., lo:hi], width),
+                                   _pad_channels(w_q[..., lo:hi], width),
+                                   stride, padding)
+            acc = part if acc is None else acc + part
+        y = acc.float() * scale
+        if bias is not None:
+            y = y + bias
+        y = y.to(x.dtype)
+    if extra:
+        y = y[..., :cout].contiguous()
     return y.movedim(-1, 1)
+
+
+def _k3_geometry(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
+                 stride: Sequence[int], padding: Sequence[int]
+                 ) -> Tuple[int, int]:
+    """``(groups, width)``: K3 takes the convolution as it is (``width ==
+    C_in``, one group), or with ``C_in`` zero-padded to ``width``, a
+    multiple of 32 (a halo tile that does not fit in shared memory goes to
+    the ``wgmma`` loop), or as the fewest groups of at most ``width``
+    channels each, a multiple of 32 whose K fits the ``wgmma`` loop's tap
+    table. Zero channels add nothing to the sums, so each way is exact."""
+    c = x_shape[-1]
+    if int8_conv_k3.takes(x_shape, w_shape, stride, padding):
+        return 1, c
+    taps = int(np.prod(w_shape[1:-1]))
+    # WGMMA_MAX_K is a multiple of K_STEP: K fits when taps * width does.
+    most = 32 * (int8_conv_k3.WGMMA_MAX_K // taps // 32)
+    if most == 0:
+        raise ValueError(f"no int8 convolution takes {taps} taps with "
+                         f"weights {w_shape}")
+    wide = -(-c // 32) * 32
+    groups = -(-wide // most)
+    return groups, -(-wide // groups // 32) * 32
+
+
+def _pad_channels(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (channels last) with zero channels up to ``width``,
+    contiguous."""
+    return F.pad(t, (0, width - t.shape[-1])).contiguous()
 
 
 class ConvBNAct(nn.Sequential):

@@ -10,8 +10,12 @@ int8 and wraps), so the port launches K3 for a CUDA tensor, with two
 entries: :func:`int8_conv_int32`, the exact int32 sums, and
 :func:`int8_conv_dequant`, whose epilogue writes ``float(acc) * scale[c]
 (+ bias[c])`` in fp32 or bf16, the serving path's. The geometry picks the
-main loop (:func:`main_loop`): ``wgmma`` where ``C_in % 32 == 0``,
-``mma.sync`` for the stems.
+main loop (:func:`main_loop`): ``wgmma`` over a swizzled ring where
+``C_in % 32 == 0``, and for every other ``C_in`` (the two stems among
+them) ``wgmma`` over a halo tile in shared memory (:func:`halo_plan`).
+The entries refuse a geometry that neither loop takes (:func:`takes`);
+``models/layers.py::int8_conv`` reshapes such a convolution into ones
+they take.
 
 The twin (:func:`int8_conv_plain`) convolves the int8 values in float64
 and casts to int32: exact, since |acc| <= 127^2 x 6912 < 2^53 for every
@@ -87,15 +91,33 @@ def _check(x: torch.Tensor, w: torch.Tensor, stride, padding) -> int:
         raise ValueError(f"operands on {x.device} and {w.device}")
     if len(stride) != nd or len(padding) != nd:
         raise ValueError(f"stride {stride} / padding {padding} for {nd}-d")
-    if main_loop(x.shape, w.shape) == "wgmma":
-        kp = -(-_taps(w.shape) // K_STEP) * K_STEP
+    _check_loop(x.shape, w.shape, stride, padding)
+    return nd
+
+
+def _check_loop(x_shape, w_shape, stride, padding) -> None:
+    """Raises ``ValueError`` unless a main loop takes these shapes: a
+    ``wgmma`` K within the tap table, or a halo tile that fits in shared
+    memory."""
+    if main_loop(x_shape, w_shape) == "wgmma":
+        kp = -(-_taps(w_shape) // K_STEP) * K_STEP
         if kp > WGMMA_MAX_K:
             raise ValueError(f"K = {kp} (padded) is past the wgmma loop's "
                              f"tap table of {WGMMA_MAX_K}")
     else:
-        x5, w5, s3, p3 = _as_3d(x.shape, w.shape, stride, padding)
-        halo_plan(x5, w5, s3, p3)
-    return nd
+        halo_plan(*_as_3d(tuple(x_shape), tuple(w_shape), tuple(stride),
+                          tuple(padding)))
+
+
+def takes(x_shape: Sequence[int], w_shape: Sequence[int],
+          stride: Sequence[int], padding: Sequence[int]) -> bool:
+    """Whether a main loop takes these channels-last shapes (C_out apart,
+    which must be a multiple of 8)."""
+    try:
+        _check_loop(x_shape, w_shape, stride, padding)
+    except ValueError:
+        return False
+    return True
 
 
 def int8_conv_plain(x: torch.Tensor, w: torch.Tensor,
@@ -315,8 +337,13 @@ def _launch(x, w, scale, bias, out_dtype, stride, padding) -> torch.Tensor:
     if min(n, od, oh, ow) <= 0:
         raise ValueError(f"empty output for input {tuple(x.shape)}")
     loop = main_loop(x.shape, w.shape)
-    if x.data_ptr() % 16:  # a view into another tensor
+    # Views into other tensors; the epilogue reads scale and bias by pairs.
+    if x.data_ptr() % 16:
         x = x.clone()
+    if scale is not None and scale.data_ptr() % 8:
+        scale = scale.clone()
+    if bias is not None and bias.data_ptr() % 8:
+        bias = bias.clone()
     out = torch.empty((n, od, oh, ow, cout), dtype=out_dtype,
                       device=x.device)
     if loop == "wgmma":

@@ -183,6 +183,12 @@ def frame_core() -> Optional[Tuple[int, int]]:
     return getattr(_local, "core", None)
 
 
+def in_lockstep() -> bool:
+    """Whether the calling thread is a shard of a :class:`Lockstep`, so
+    that :func:`all_max` reduces over the other shards."""
+    return getattr(_local, "shard", None) is not None
+
+
 def all_max(value: torch.Tensor) -> torch.Tensor:
     """The maximum of ``value`` (a scalar tensor) over the shards of the
     :class:`Lockstep` that runs the calling thread; ``value`` itself
