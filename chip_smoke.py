@@ -18,7 +18,8 @@ each printed as one JSON line:
    and within the 2.5e-3 dB fp32 floor that the CPU tests pin);
 4. K2 (HF stem) against its twin at every main-path batch, (B, 32, 96, 96,
    3) for B = 1 / 16 / 128, the refinement's half windows (4, 16, 96, 96,
-   3) and the trainer's validation batch (6, 32, 96, 96, 3), and at an odd,
+   3) and the trainers' validation batches (6 and 3, 32, 96, 96, 3), and at
+   an odd,
    non-square (2, 4, 15, 10, 3) that leaves partial
    output tiles, and the serving phase's buckets (2 / 4 / 8, 32, 96, 96,
    3): fp32 atol 2e-5, bf16 within
@@ -26,7 +27,7 @@ each printed as one JSON line:
    twin and bound times in both dtypes;
 4b. K3 (int8 convolution) and K4 (int8 quantize) against their twins at
    every int8 encoder convolution of ``ModelConfig()`` (found by one int8
-   forward) at B = 1, 16 and 128 windows and at ten odd shapes with
+   forward) at B = 1, 8, 16 and 128 windows and at ten odd shapes with
    partial tiles (five on the halo loop: tiles cut at every border, C_in
    2, 5 and 8, a stride-1 stem): K3's int32 outputs equal, its
    dequantized fp32 and bf16 outputs bit-equal; K4's single launch
@@ -152,7 +153,33 @@ each printed as one JSON line:
    ``python3 -m lipsync_tpu_torch.tools.train_lip_localizer --out
    weights/lip_localizer.npz`` (the JAX script's defaults).
 
-Phases 5-11 record the shape and dtype of every input that their main
+12. the operational tools (``tools``): ``tools/make_synthetic_dataset.py``
+   renders three disjoint splits in memory as ``run_synthetic_eval`` makes
+   them (envelope style, jitter, hard negatives, 3 s clips, seeds 1 / 7 /
+   13; 8 / 4 / 4 clips per class); ``precompute_training_tensors`` writes
+   them on the card (zarr ``full_sequence`` for all three with the centre
+   box; on the test split also npy through a ``FakeDetector`` holding that
+   box, lmdb and ``fixed_clip``), ``validate_preprocessed`` reads each
+   store, ``run_training`` takes 2 epochs of at most 4 steps at batch 8
+   (TF32 off after it), ``fit_calibrator`` fits temperature, Platt and
+   isotonic, and ``validate_pipeline`` scores the test split in
+   preprocessed mode with the bf16 and int8 engines of its command line
+   and an fp32 engine, Platt-calibrated, then in video mode four test
+   clips through ``Predictor.predict``. No failed clip and no error row;
+   K1 once per clip precomputed and per ``predict``; K2 once per eval-mode
+   forward; K3 and K4 24 times per int8 forward; uint8 crops within one
+   step and the mel within the 2.5e-3 dB fp32 quiet-band floor of the same
+   tool run with ``--device cpu`` (the clips are silent between
+   syllables), and K1 on the test split's PCM against a float64 chain as
+   phase 3 holds it at quiet bands; the calibrators equal to a CPU refit of
+   the card's logits; each
+   ``metrics.json`` equal to its recomputation from ``predictions.csv``.
+   Precompute ms per clip by stage (ingest stand-in, crop, K1, store
+   write), training seconds, eval windows/s per engine and the fit's ms.
+   Decode, muxing and haar detection are held on the CPU only, by
+   ``tests/test_torch_tools_*.py`` (no FFmpeg or cascade files there).
+
+Phases 5-12 record the shape and dtype of every input that their main
 runs give each kernel's wrapper (for K3 also the weight shape, stride,
 padding, bias and output dtype; for K4 the memory layout); each must be
 one that phase 3, 4 or 4b held against the twin
@@ -250,6 +277,26 @@ def tf32_flags() -> dict:
             "matmul": torch.backends.cuda.matmul.allow_tf32}
 
 
+def mel_float64(y):
+    """The log-mel chain of PCM ``y`` in float64, K1's frames: centred
+    400-sample Hann frames at hop 160, power rFFT, 80 mel bands, dB to the
+    clip's peak floored at -80."""
+    import numpy as np
+
+    from lipsync_tpu_torch.ops import mel as mel_ops
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+
+    yp = np.pad(np.asarray(y, np.float64), (200, 200))
+    frames = np.lib.stride_tricks.sliding_window_view(yp, 400)[::160]
+    power = np.abs(np.fft.rfft(
+        frames[: k1.n_frames_for(len(y))]
+        * mel_ops.hann_window(400).astype(np.float64), axis=-1)) ** 2
+    ref = 10 * np.log10(np.maximum(
+        power @ mel_ops.mel_filterbank(16000, 400, 80).T.astype(np.float64),
+        1e-10)).T
+    return np.maximum(ref - ref.max(), -80.0)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -277,8 +324,10 @@ class InMemoryClips:
         self.clips = {}
         self.uploads = {}
 
-    def add(self, name: str, frames, pcm) -> str:
-        path = f"/in-memory/{name}.avi"
+    def add(self, name: str, frames, pcm, path=None) -> str:
+        """Serve ``(frames, pcm)`` at ``path`` (``/in-memory/<name>.avi``
+        unless given) and to the upload token of ``name``."""
+        path = path or f"/in-memory/{name}.avi"
         self.clips[path] = (frames, pcm)
         self.uploads[self.upload(name)] = path
         return path
@@ -1341,9 +1390,9 @@ def same_float(a, b) -> bool:
 def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
              plain_int8) -> dict:
     """K3 and K4 against their twins at every int8 encoder convolution of
-    ``cfg`` (found by one int8 forward of one window) at B = 1, 16 and 128
-    windows, and at ten odd shapes with partial tiles, each row naming its
-    main loop (``k3.main_loop``):
+    ``cfg`` (found by one int8 forward of one window) at B = 1, 8, 16 and
+    128 windows (8 untimed), and at ten odd shapes with partial tiles, each
+    row naming its main loop (``k3.main_loop``):
 
     - K3's int32 entry equal to its twin; its dequantizing entry bit-equal
       to its twin writing fp32 and bf16 (with a bias on the odd shapes);
@@ -1478,7 +1527,9 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
            ((2, 9, 13, 8), (40, 3, 3, 8), (1, 2), (1, 1)),
            ((2, 4, 15, 17, 3), (8, 3, 7, 7, 3), (1, 1, 1), (1, 3, 3)),
            ((1, 3, 9, 300, 5), (136, 1, 3, 3, 5), (1, 1, 1), (0, 1, 1))]
-    cases = [(i, b, (b, *g[0][1:]), *g[1:]) for b in (1, 16, 128)
+    # B = 8 is phase 12's int8 evaluation batch: held against the twins,
+    # not timed.
+    cases = [(i, b, (b, *g[0][1:]), *g[1:]) for b in (1, 8, 16, 128)
              for i, g in enumerate(geoms)]
     cases += [(f"odd{i}", 0, *g) for i, g in enumerate(odd)]
     dtypes = (torch.float32, torch.bfloat16)
@@ -1542,8 +1593,9 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
         # profiler (:func:`device_ms`). A share or a ratio compares only
         # times of one timer.
         int32 = lambda: k3.int8_conv_int32(x, w, stride, padding)  # noqa
-        kms = time_ms(int32, iters=10)
-        dms = device_ms(int32, K3_KERNELS)
+        timed = b != 8
+        kms = time_ms(int32, iters=10) if timed else None
+        dms = device_ms(int32, K3_KERNELS) if timed else None
         row = {"conv": name, "x": list(x_shape), "w": list(w_shape),
                "stride": list(stride), "padding": list(padding),
                "main_loop": k3.main_loop(x_shape, w_shape),
@@ -1551,8 +1603,10 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
                "max_abs_err": int((got.long() - want.long()).abs().max()),
                "fused_equal": fused_equal, "k4_equal": quant_equal,
                "kernel_ms": kms, "device_ms": dms,
-               "bound_ms": bms, "bound_by": bby, "bound_share": bms / kms,
-               "device_bound_share": bms / dms, "bound_basis": INT8}
+               "bound_ms": bms, "bound_by": bby,
+               "bound_share": bms / kms if timed else None,
+               "device_bound_share": bms / dms if timed else None,
+               "bound_basis": INT8}
         if b == 16:
             for dt in dtypes:
                 tag = str(dt).removeprefix("torch.")
@@ -1693,7 +1747,7 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
             del got, want
         del xf, wf
     torch.cuda.empty_cache()
-    for b in (1, 16, 128, 0):
+    for b in (1, 8, 16, 128, 0):
         emit({"phase": "k3_int8_conv", "batch": b or "odd",
               "rows": [r for (_, bb), r in rows.items() if bb == b]})
     emit({"phase": "k3_int8_widths", "convs": c1})
@@ -2773,6 +2827,407 @@ def spans_around(timer, stages):
             setattr(owner, attr, fn)
 
 
+# Phase 12: the operational tools (``lipsync_tpu_torch/tools``) as
+# run_synthetic_eval chains them: three disjoint splits of the synthetic
+# generator's clips (envelope style, jitter, hard negatives, 3 s at 15 fps,
+# seeds 1 / 7 / 13; its defaults of 300 / 60 / 100 per class cut to these),
+# a trainer cut to 2 epochs of at most 4 steps at batch 8.
+TOOLS_SPLITS = (("train", 8, 1), ("calib", 4, 7), ("test", 4, 13))
+TOOLS_SECONDS = 3.0
+TOOLS_EPOCHS, TOOLS_STEPS, TOOLS_BATCH = 2, 4, 8
+# run_training's validation split (0.2) of the 16 training clips: the batch
+# that its validation forward gives K2.
+TOOLS_VAL_CLIPS = max(1, int(2 * TOOLS_SPLITS[0][1] * 0.2))
+# The four test clips of video mode, two per class.
+TOOLS_VIDEO = ("0_real/real_0000.avi", "0_real/real_0001.avi",
+               "1_fake/fake_0000.avi", "1_fake/fake_0001.avi")
+
+
+def tools_phase(dev, cfg, smi, record) -> dict:
+    """The operational tools at ``ModelConfig()`` width, each through the
+    entry point a user calls, on clips that
+    ``tools/make_synthetic_dataset.py`` renders in memory (``INGEST`` says
+    why) and serves at the paths of placeholder files, which
+    ``discover_video_samples`` finds: ``precompute_training_tensors`` (zarr
+    ``full_sequence`` on every split with the centre box; on the test split
+    also npy through a ``FakeDetector`` holding that box, lmdb, and
+    ``fixed_clip``), ``validate_preprocessed``, ``run_training``,
+    ``fit_calibrator`` (temperature, Platt, isotonic), and
+    ``validate_pipeline`` on the test split in preprocessed mode with the
+    bf16 and int8 engines of its command line and an fp32 engine,
+    Platt-calibrated, then in video mode on four test clips through
+    ``Predictor.predict``. Checks: no failed clip, no error row; K1 once per
+    clip precomputed and per ``predict``; K2 once per eval-mode forward; K3
+    and K4 24 times per int8 forward; the stored tensors against the same
+    tool run with ``--device cpu``; the calibrators against a CPU refit of
+    the same logits; each ``metrics.json`` against its recomputation from
+    ``predictions.csv``. Returns the kernels' launches over its main
+    runs."""
+    import csv
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.inference.calibration import Calibrator
+    from lipsync_tpu_torch.inference.engine import load_engine
+    from lipsync_tpu_torch.inference.predictor import (
+        Predictor,
+        PredictorConfig,
+    )
+    from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.preprocessing import ingest
+    from lipsync_tpu_torch.preprocessing import video as video_mod
+    from lipsync_tpu_torch.preprocessing.face_detection import (
+        FakeDetector,
+        center_crop_box,
+    )
+    from lipsync_tpu_torch.tools import fit_calibrator
+    from lipsync_tpu_torch.tools import make_synthetic_dataset as gen
+    from lipsync_tpu_torch.tools import precompute_training_tensors as pre
+    from lipsync_tpu_torch.tools import validate_pipeline
+    from lipsync_tpu_torch.tools import validate_preprocessed
+    from lipsync_tpu_torch.training import train as train_mod
+    from lipsync_tpu_torch.training.data import LipSyncDataset
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    fps, sr = 15.0, 16000
+    on_card = ["--device", str(dev)]
+    memory = InMemoryClips(ingest, fps)
+
+    # ── the splits, rendered in memory ────────────────────────────────────
+    t0 = time.perf_counter()
+    raw = {split: work / f"raw_{split}" for split, _, _ in TOOLS_SPLITS}
+    for split, n, seed in TOOLS_SPLITS:
+        for rel, frames, pcm in gen.envelope_clips(
+                n, TOOLS_SECONDS, fps, sr, seed, jitter=True,
+                hard_negatives=True):
+            path = raw[split] / rel
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.touch()
+            memory.add(f"{split}_{path.stem}", frames, pcm, path=str(path))
+    raw["video"] = work / "raw_video"
+    for rel in TOOLS_VIDEO:
+        path = raw["video"] / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.touch()
+        memory.add(f"video_{path.stem}",
+                   *memory.clips[str(raw["test"] / rel)], path=str(path))
+    render_s = time.perf_counter() - t0
+    box = center_crop_box(*frames.shape[1:3], 96)
+
+    def detector():
+        return FakeDetector(lambda i: [box])
+
+    # name -> (split, directory, flags beyond the directories and device)
+    stores = {f"{split}_zarr": (split, work / f"pre_{split}_zarr", [
+        "--storage-format", "zarr", "--no-face-detection"])
+        for split, _, _ in TOOLS_SPLITS}
+    stores["test_npy_detector"] = ("test", work / "pre_test_npy",
+                                   ["--storage-format", "npy"])
+    stores["test_lmdb"] = ("test", work / "pre_test_lmdb", [
+        "--storage-format", "lmdb", "--no-face-detection"])
+    stores["test_fixed_clip"] = ("test", work / "pre_test_fixed", [
+        "--storage-format", "npy", "--mode", "fixed_clip"])
+    per_class = {split: n for split, n, _ in TOOLS_SPLITS}
+
+    def n_of(name):
+        return 2 * per_class[stores[name][0]]
+
+    def precompute(name, out, device):
+        split, _, flags = stores[name]
+        backend = None if "--no-face-detection" in flags else detector()
+        return pre.main(["--data-dir", str(raw[split]), "--output-dir",
+                         str(out), *flags, "--device", str(device)],
+                        backend=backend)
+
+    def platt_flags():
+        return ["--calibration-method", "platt",
+                "--calibration-platt-a", repr(platt[0]),
+                "--calibration-platt-b", repr(platt[1])]
+
+    def eval_argv(out, *flags):
+        return ["--preprocessed-dir", str(stores["test_zarr"][1]),
+                "--model-path", str(best), "--output-dir", str(work / out),
+                *platt_flags(), *flags, *on_card]
+
+    clock = StageClock()
+    clock.wrap(memory, "read_video", "ingest_stand_in")
+    clock.wrap(memory, "read_audio", "ingest_stand_in")
+    clock.wrap(pre, "crop_track_on_device", "crop")
+    clock.wrap(video_mod, "crop_track_on_device", "crop")
+    clock.wrap(pre, "preprocess_audio_pcm", "log_mel")
+    clock.wrap(pre, "_store_sample", "store_write")
+    forwards = {"eval": 0, "int8": 0}
+    real_forward = LipSyncModel.forward
+
+    def counted_forward(model, *args, **kwargs):
+        if not model.training:
+            forwards["eval"] += 1
+            forwards["int8"] += model.config.conv_lowering == "int8"
+        return real_forward(model, *args, **kwargs)
+
+    counters = (k1, k2, k3, k4)
+    per_stage, seconds = {}, {}
+
+    def stage(name, fn):
+        """``fn()`` as one stage: its launches (K1, K2, K3, K4, eval-mode
+        forwards, int8 forwards) and its synchronised wall time."""
+        before = [c.launches for c in counters] + list(forwards.values())
+        sync()
+        t1 = time.perf_counter()
+        out = fn()
+        sync()
+        seconds[name] = time.perf_counter() - t1
+        after = [c.launches for c in counters] + list(forwards.values())
+        per_stage[name] = [a - b for a, b in zip(after, before)]
+        return out
+
+    # ── main runs ─────────────────────────────────────────────────────────
+    counts = {}
+    LipSyncModel.forward = counted_forward
+    try:
+        with record(), memory.installed():
+            k1.launches = k2.launches = k3.launches = k4.launches = 0
+            for name, (_, out, _) in stores.items():
+                counts[name] = stage(f"precompute_{name}",
+                                     lambda: precompute(name, out, dev))
+            precompute_ms = dict(clock.ms)
+            clock.restore()
+            invalid = {name: validate_preprocessed.main(
+                           ["--preprocessed-dir", str(out)])
+                       for name, (_, out, _) in stores.items()}
+            train_args = train_mod.build_argparser().parse_args([
+                "--preprocessed-dir", str(stores["train_zarr"][1]),
+                "--output-dir", str(work / "weights"),
+                "--epochs", str(TOOLS_EPOCHS),
+                "--max-steps-per-epoch", str(TOOLS_STEPS),
+                "--batch-size", str(TOOLS_BATCH),
+                "--video-frames", str(cfg.video_frames),
+                "--audio-frames", str(cfg.audio_frames),
+                "--crop-size", str(cfg.crop_size), *on_card])
+            stage("train", lambda: train_mod.run_training(
+                train_args, device=train_args.device))
+            tf32_after_train = tf32_flags()
+            best = work / "weights" / "best_model_accuracy"
+            logits_npz = work / "calib_logits.npz"
+            fitted = stage("fit_calibrator", lambda: fit_calibrator.main([
+                "--preprocessed-dir", str(stores["calib_zarr"][1]),
+                "--model-path", str(best), "--method", "all",
+                "--isotonic-out", str(work / "isotonic.pkl"),
+                "--save-logits", str(logits_npz), *on_card]))
+            platt = (fitted["calibration_platt_a"],
+                     fitted["calibration_platt_b"])
+            metrics = {
+                "bf16": stage("eval_bf16", lambda: validate_pipeline.main(
+                    eval_argv("eval_bf16"))),
+                "int8": stage("eval_int8", lambda: validate_pipeline.main(
+                    eval_argv("eval_int8", "--quantized-int8")))}
+            fp32 = load_engine(best, cfg, use_bfloat16=False, device=dev,
+                               calibrator=Calibrator.from_config(
+                                   "platt", platt_a=platt[0],
+                                   platt_b=platt[1]))
+            metrics["fp32"] = stage(
+                "eval_fp32", lambda: validate_pipeline.run_preprocessed_mode(
+                    validate_pipeline.build_argparser().parse_args(
+                        eval_argv("eval_fp32")), engine=fp32))
+            predictor = Predictor(
+                model_path=best, config=PredictorConfig(), model_config=cfg,
+                detector_backend=detector(), device=dev)
+            video_args = validate_pipeline.build_argparser().parse_args([
+                "--data-dir", str(raw["video"]), "--output-dir",
+                str(work / "eval_video"), *on_card])
+            metrics["video"] = stage(
+                "eval_video", lambda: validate_pipeline.run_video_mode(
+                    video_args, predictor=predictor))
+        launches = {"log_mel": k1.launches, "hf_stem": k2.launches,
+                    "int8_conv": k3.launches, "int8_quant": k4.launches}
+    finally:
+        LipSyncModel.forward = real_forward
+        clock.restore()
+
+    # ── the same tools on the CPU, and the readings ───────────────────────
+    def stored(out):
+        ds = LipSyncDataset(preprocessed_dir=out)
+        return [ds._load_tensors(rec) for rec in ds._manifest]
+
+    # K1 and its twin on the card against a float64 chain, on the test
+    # split's PCM (phase 3's quiet-band bounds: the clips are silent
+    # between syllables; these launches come after the main runs' counts
+    # were read).
+    from lipsync_tpu_torch.preprocessing import audio as audio_mod
+
+    k1_vs_f64 = {"kernel_db": 0.0, "twin_db": 0.0, "kernel_vs_twin_db": 0.0}
+    for rel in sorted(memory.clips):
+        if rel.startswith(str(raw["test"])):
+            pcm = memory.clips[rel][1]
+            got = audio_mod.preprocess_audio_pcm(pcm, device=dev)
+            saved = audio_mod.log_mel_spectrogram_fused
+            audio_mod.log_mel_spectrogram_fused = (
+                lambda y: k1.finish_db(k1.log_mel_db_plain(y[None]))[0])
+            try:
+                twin = audio_mod.preprocess_audio_pcm(pcm, device=dev)
+            finally:
+                audio_mod.log_mel_spectrogram_fused = saved
+            ref = mel_float64(pcm)
+            for key, d in (("kernel_db", got - ref), ("twin_db", twin - ref),
+                           ("kernel_vs_twin_db", got - twin)):
+                k1_vs_f64[key] = max(k1_vs_f64[key], float(np.abs(d).max()))
+
+    cpu = torch.device("cpu")
+    with memory.installed():
+        tensor_err = {}
+        for name in ("test_zarr", "test_npy_detector", "test_fixed_clip"):
+            out = work / f"{name}_cpu"
+            check(precompute(name, out, cpu)["failed"] == 0,
+                  f"{name} on the CPU failed a clip")
+            card, host = stored(stores[name][1]), stored(out)
+            scale = 255.0 if name == "test_fixed_clip" else 1.0
+            tensor_err[name] = {
+                "clips": len(card),
+                "visual_max_abs": max(float(np.abs(
+                    c[0].astype(np.float64) - h[0]).max() * scale)
+                    for c, h in zip(card, host)),
+                "mel_max_abs_db": max(float(np.abs(c[1] - h[1]).max())
+                                      for c, h in zip(card, host))}
+            check(len(card) == len(host) == n_of(name), f"{name}: clips")
+    t0 = time.perf_counter()
+    refit = fit_calibrator.main([
+        "--logits-in", str(logits_npz), "--method", "all",
+        "--isotonic-out", str(work / "isotonic_cpu.pkl")])
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    with open(work / "isotonic.pkl", "rb") as f:
+        iso_card = pickle.load(f)
+    with open(work / "isotonic_cpu.pkl", "rb") as f:
+        iso_cpu = pickle.load(f)
+
+    def rows_of(out):
+        with (work / out / "predictions.csv").open() as f:
+            return list(csv.DictReader(f))
+
+    recomputed = {}
+    for name in metrics:
+        rows = rows_of(f"eval_{name}")
+        (work / f"recompute_{name}").mkdir()
+        again = validate_pipeline.finalize_metrics(
+            rows, work / f"recompute_{name}", 0.5)
+        written = json.loads((work / f"eval_{name}" / "metrics.json")
+                             .read_text())
+        recomputed[name] = {
+            "rows": len(rows),
+            "error_rows": sum(r["verdict"] == "error" for r in rows),
+            "equal": json.loads(json.dumps(again)) == written}
+
+    # Warm eval throughput per engine, in turns, median of 3 (not counted).
+    engines = {
+        "bf16": load_engine(best, cfg, device=dev),
+        "fp32": fp32,
+        "int8": load_engine(best, cfg, quantized_int8=True, device=dev)}
+    windows = n_of("test_zarr")
+    windows_per_s = {}
+    for name, engine in engines.items():
+        engine.calibrator = fp32.calibrator
+        args = validate_pipeline.build_argparser().parse_args(
+            eval_argv(f"timed_{name}"))
+        times = []
+        for _ in range(3):
+            sync()
+            t1 = time.perf_counter()
+            validate_pipeline.run_preprocessed_mode(args, engine=engine)
+            sync()
+            times.append(time.perf_counter() - t1)
+        windows_per_s[name] = windows / statistics.median(times)
+
+    n_pre = sum(c["new"] for c in counts.values())
+    n_predicts = len(TOOLS_VIDEO)
+    readings = {
+        "phase": "tools", "nvidia_smi": smi, "render_s": render_s,
+        "clips_precomputed": n_pre,
+        "precompute_ms_per_clip": {k: v / n_pre
+                                   for k, v in precompute_ms.items()},
+        "precompute_s": {k: v for k, v in seconds.items()
+                         if k.startswith("precompute_")},
+        "training_s": seconds["train"],
+        "eval_windows_per_s": windows_per_s,
+        "eval_s": {k: v for k, v in seconds.items()
+                   if k.startswith("eval_")},
+        "fit_calibrator_s": seconds["fit_calibrator"],
+        "fit_ms_from_logits": fit_ms,
+        "launches": launches,
+        "per_stage_k1_k2_k3_k4_forwards_int8forwards": per_stage,
+        "counts": counts, "invalid": invalid,
+        "fitted": {k: v for k, v in fitted.items() if "path" not in k},
+        "refit_cpu": {k: v for k, v in refit.items() if "path" not in k},
+        "isotonic_thresholds": len(iso_card.x_thresholds),
+        "card_vs_cpu": tensor_err, "k1_on_card_vs_float64": k1_vs_f64,
+        "metrics_recomputed": recomputed,
+        "metrics": {k: {m: v.get(m) for m in ("accuracy", "f1", "roc_auc",
+                                              "errors")}
+                    for k, v in metrics.items()},
+        "tf32_after_train": tf32_after_train,
+        "phase_s": time.perf_counter() - t_phase}
+    emit(readings)
+
+    # Every number is printed above before any is checked.
+    for name, c in counts.items():
+        check(c["failed"] == 0 and c["new"] == n_of(name),
+              f"precompute {name}: {c}")
+    check(not any(invalid.values()), f"validate_preprocessed: {invalid}")
+    check(tf32_after_train == {"cudnn": False, "matmul": False},
+          f"run_training left TF32 on: {tf32_after_train}")
+    for name, r in recomputed.items():
+        check(r["error_rows"] == 0 and metrics[name].get("errors") == 0,
+              f"eval {name}: error rows {r}")
+        check(r["equal"], f"eval {name}: metrics.json differs from its "
+                          "recomputation from predictions.csv")
+    check(launches["log_mel"] == n_pre + n_predicts,
+          f"K1 {launches['log_mel']} launches for {n_pre} clips and "
+          f"{n_predicts} predicts")
+    n_eval, n_int8 = sum(s[4] for s in per_stage.values()), sum(
+        s[5] for s in per_stage.values())
+    check(launches["hf_stem"] == n_eval and n_eval > 0,
+          f"K2 {launches['hf_stem']} launches for {n_eval} eval forwards")
+    check(n_int8 > 0 and launches["int8_conv"] == 24 * n_int8
+          and launches["int8_quant"] == 24 * n_int8,
+          f"K3 {launches['int8_conv']}, K4 {launches['int8_quant']} for "
+          f"{n_int8} int8 forwards")
+    for name, s in per_stage.items():
+        check(s[1] == s[4], f"{name}: K2 {s[1]} for {s[4]} eval forwards")
+    check(per_stage["eval_video"][0] == n_predicts,
+          f"video mode: K1 {per_stage['eval_video'][0]}")
+    # The mel of clips with silent stretches has bands 75-80 dB down, where
+    # every fp32 chain rounds differently: phase 3's quiet-band bounds (K1
+    # no further from float64 than its twin + 2e-4 dB, and within the
+    # 2.5e-3 dB fp32 floor), and the card's tensors within that floor of
+    # the CPU's.
+    check(k1_vs_f64["kernel_db"] <= k1_vs_f64["twin_db"] + 2e-4
+          and k1_vs_f64["kernel_db"] <= 2.5e-3,
+          f"K1 vs float64 on the test split's PCM: {k1_vs_f64}")
+    for name, e in tensor_err.items():
+        check(e["visual_max_abs"] <= 1.0,
+              f"{name}: crops card vs CPU {e['visual_max_abs']} uint8 steps")
+        check(e["mel_max_abs_db"] <= 2.5e-3,
+              f"{name}: mel card vs CPU {e['mel_max_abs_db']} dB")
+    for key, value in refit.items():
+        if "path" not in key:
+            check(value == fitted[key], f"{key}: card {fitted[key]}, CPU "
+                                        f"refit {value}")
+    check(np.array_equal(iso_card.x_thresholds, iso_cpu.x_thresholds)
+          and np.array_equal(iso_card.y_thresholds, iso_cpu.y_thresholds),
+          "isotonic: card and CPU refit differ")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def world_of_one(work: Path) -> None:
     """The child of phase 10 (c), started by ``torch.distributed.run`` with
     one process: join its NCCL group, then one host-fed and one
@@ -3118,15 +3573,7 @@ def main() -> None:
     yq2 = torch.from_numpy(yq).to(dev)[None]
     got = k1.finish_db(k1.log_mel_db(yq2))[0].cpu().numpy()
     twin = k1.finish_db(k1.log_mel_db_plain(yq2))[0].cpu().numpy()
-    yp = np.pad(yq.astype(np.float64), (200, 200))
-    frames64 = np.lib.stride_tricks.sliding_window_view(yp, 400)[::160]
-    power64 = np.abs(np.fft.rfft(
-        frames64[: k1.n_frames_for(n)]
-        * mel_ops.hann_window(400).astype(np.float64), axis=-1)) ** 2
-    ref = 10 * np.log10(np.maximum(
-        power64 @ mel_ops.mel_filterbank(16000, 400, 80).T.astype(np.float64),
-        1e-10)).T
-    ref = np.maximum(ref - ref.max(), -80.0)
+    ref = mel_float64(yq)
     quiet = {"kernel_vs_f64_db": float(np.abs(got - ref).max()),
              "twin_vs_f64_db": float(np.abs(twin - ref).max())}
     emit({"phase": "k1_quiet_band", "n": n, **quiet})
@@ -3198,11 +3645,11 @@ def main() -> None:
 
     # An odd shape with partial output tiles, the refinement's three half
     # windows of clip S (phase 6) in their bucket of 4 and in its halves on
-    # two shards (phase 10), the training
-    # phase's validation batch (phase 7) and the serving phase's warmup and
-    # coalesced buckets (phase 8).
+    # two shards (phase 10), the training phases' validation batches
+    # (phases 7 and 12) and the serving phase's warmup and coalesced
+    # buckets (phase 8).
     for shape in ((2, 4, 15, 10, 3), (4, 16, 96, 96, 3), (2, 16, 96, 96, 3),
-                  (VAL_CLIPS, 32, 96, 96, 3),
+                  (VAL_CLIPS, 32, 96, 96, 3), (TOOLS_VAL_CLIPS, 32, 96, 96, 3),
                   *((b, 32, 96, 96, 3) for b in K2_EXTRA_BATCHES)):
         video = torch.rand(*shape, generator=gen).to(dev)
         err32, _, used16 = k2_errors(video)
@@ -3469,6 +3916,10 @@ def main() -> None:
     completion_launches = completion_phase(dev, cfg, eng32, smi,
                                            lambda: kernel_inputs(seen))
 
+    # ── 12. the operational tools ─────────────────────────────────────
+    torch.cuda.empty_cache()
+    tools_launches = tools_phase(dev, cfg, smi, lambda: kernel_inputs(seen))
+
     # Every input shape that the main runs gave a kernel was checked above.
     unchecked = {name: sorted(shapes - checked[name])
                  for name, shapes in seen.items()}
@@ -3478,7 +3929,7 @@ def main() -> None:
     check(not any(unchecked.values()),
           f"main-path kernel inputs not held against the twin: {unchecked}")
 
-    # ── 12. kernels ───────────────────────────────────────────────────
+    # ── 13. kernels ───────────────────────────────────────────────────
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
@@ -3513,6 +3964,7 @@ def main() -> None:
          "launches_data_parallel_by_device":
              dp_launches["by_device"]["log_mel"],
          "launches_completion": completion_launches["log_mel"],
+         "launches_tools": tools_launches["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
@@ -3529,6 +3981,7 @@ def main() -> None:
          "launches_data_parallel_by_device":
              dp_launches["by_device"]["hf_stem"],
          "launches_completion": completion_launches["hf_stem"],
+         "launches_tools": tools_launches["hf_stem"],
          # under the fold (one cuDNN conv in K2's place): checked to be 0
          "launches_fold": option_launches["hf_stem_fold"],
          "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
@@ -3545,6 +3998,7 @@ def main() -> None:
          "launches_data_parallel_by_device":
              dp_launches["by_device"]["int8_conv"],
          "launches_completion": completion_launches["int8_conv"],
+         "launches_tools": tools_launches["int8_conv"],
          "shape": {k: k3m[k] for k in ("x", "w", "stride", "padding",
                                        "main_loop")},
          # ms, plain_ms and library_ms per call from CUDA events on the
@@ -3574,6 +4028,7 @@ def main() -> None:
          "launches_data_parallel_by_device":
              dp_launches["by_device"]["int8_quant"],
          "launches_completion": completion_launches["int8_quant"],
+         "launches_tools": tools_launches["int8_quant"],
          # the single launch on K3's input above, fp32 channels-last; the
          # old absmax + quantize pair in turns with it under "pair_ms"
          "shape": [k3m["x"][0], k3m["x"][-1], *k3m["x"][1:-1]],

@@ -1,8 +1,11 @@
 """Output calibration: temperature / Platt / isotonic.
 
-Copy of ``inference/calibration.py`` in the JAX package (numpy only; the
-fitters import scipy/sklearn when called). Operates on arrays of logits so
-the batched scoring engine calibrates a whole window batch at once.
+Copy of ``inference/calibration.py`` in the JAX package (numpy; the
+temperature and Platt fitters import scipy when called). Operates on arrays
+of logits so the batched scoring engine calibrates a whole window batch at
+once. The isotonic fit is the port's own (:class:`IsotonicCalibrator`): the
+JAX package fits and pickles sklearn's ``IsotonicRegression``, which the
+card's machine does not have.
 """
 
 from __future__ import annotations
@@ -12,6 +15,10 @@ import pickle
 from typing import Optional
 
 import numpy as np
+
+from lipsync_tpu_torch.utils.logger import get_logger
+
+logger = get_logger(__name__)
 
 
 def _sigmoid(x: np.ndarray) -> np.ndarray:
@@ -42,7 +49,11 @@ class Calibrator:
             try:
                 with open(isotonic_path, "rb") as f:
                     iso = pickle.load(f)
-            except Exception:
+            except Exception as e:  # the JAX package's fall-back, said aloud
+                logger.warning(
+                    "Cannot load the isotonic calibrator %s (%s: %s); "
+                    "serving uncalibrated P(REAL)", isotonic_path,
+                    type(e).__name__, e)
                 method = "none"
         return cls(
             method=method,
@@ -123,10 +134,77 @@ def fit_platt(
     return float(res.x[0]), float(res.x[1])
 
 
-def fit_isotonic(probs: np.ndarray, labels: np.ndarray):
-    """sklearn isotonic regression (fit_calibrator.py:123-141)."""
-    from sklearn.isotonic import IsotonicRegression
+class IsotonicCalibrator:
+    """A fitted isotonic map from raw P(REAL) to calibrated P(REAL), with
+    the semantics of sklearn's ``IsotonicRegression(out_of_bounds="clip",
+    y_min=0, y_max=1)``: equal inputs pooled into their mean label, a
+    pool-adjacent-violators fit, outputs clipped to [0, 1], queries clipped
+    to the fitted range and interpolated linearly between thresholds. Plain
+    numpy; it pickles and unpickles without sklearn."""
 
-    iso = IsotonicRegression(out_of_bounds="clip", y_min=0.0, y_max=1.0)
-    iso.fit(np.asarray(probs, np.float64), np.asarray(labels, np.float64))
-    return iso
+    def __init__(self, x_thresholds: np.ndarray, y_thresholds: np.ndarray):
+        self.x_thresholds = np.asarray(x_thresholds, np.float64)
+        self.y_thresholds = np.asarray(y_thresholds, np.float64)
+
+    @classmethod
+    def fit(cls, x: np.ndarray, y: np.ndarray) -> "IsotonicCalibrator":
+        x = np.asarray(x, np.float64).reshape(-1)
+        y = np.asarray(y, np.float64).reshape(-1)
+        if x.shape != y.shape or x.size == 0:
+            raise ValueError(f"isotonic fit needs equal, non-empty x and y: "
+                             f"{x.shape} vs {y.shape}")
+        order = np.lexsort((y, x))
+        ux, uy, uw = _pool_equal_x(x[order], y[order])
+        fitted = np.clip(_pool_adjacent_violators(uy, uw), 0.0, 1.0)
+        # Keep the ends and every point where the fitted value changes.
+        keep = np.ones(len(fitted), bool)
+        keep[1:-1] = ((fitted[1:-1] != fitted[:-2])
+                      | (fitted[1:-1] != fitted[2:]))
+        return cls(ux[keep], fitted[keep])
+
+    def predict(self, x: np.ndarray) -> np.ndarray:
+        x = np.clip(np.asarray(x, np.float64).reshape(-1),
+                    self.x_thresholds[0], self.x_thresholds[-1])
+        if len(self.x_thresholds) == 1:
+            return np.full(x.shape, self.y_thresholds[0])
+        return np.interp(x, self.x_thresholds, self.y_thresholds)
+
+
+def _pool_equal_x(x: np.ndarray, y: np.ndarray):
+    """Sorted ``x`` -> (unique x, mean y, count), taking x within float64
+    resolution (1e-15) of its group's first value as equal, as sklearn
+    does."""
+    eps = np.finfo(np.float64).resolution
+    starts = [0]
+    for j in range(1, len(x)):
+        if x[j] - x[starts[-1]] >= eps:
+            starts.append(j)
+    bounds = starts + [len(x)]
+    ux = x[starts]
+    uw = np.diff(bounds).astype(np.float64)
+    uy = np.array([y[a:b].sum() for a, b in zip(bounds, bounds[1:])]) / uw
+    return ux, uy, uw
+
+
+def _pool_adjacent_violators(y: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """The weighted least-squares non-decreasing fit of ``y``: merge each
+    block that falls below the one before it into that one, at their
+    weighted mean, until no block does."""
+    means, weights, sizes = [], [], []
+    for value, weight in zip(y, w):
+        means.append(float(value))
+        weights.append(float(weight))
+        sizes.append(1)
+        while len(means) > 1 and means[-2] > means[-1]:
+            m, wt, n = means.pop(), weights.pop(), sizes.pop()
+            total = weights[-1] + wt
+            means[-1] = (means[-1] * weights[-1] + m * wt) / total
+            weights[-1] = total
+            sizes[-1] += n
+    return np.repeat(means, sizes)
+
+
+def fit_isotonic(probs: np.ndarray, labels: np.ndarray) -> IsotonicCalibrator:
+    """Isotonic calibration of raw P(REAL) against labels
+    (fit_calibrator.py:123-141), by :class:`IsotonicCalibrator`."""
+    return IsotonicCalibrator.fit(probs, labels)

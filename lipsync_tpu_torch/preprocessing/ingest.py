@@ -8,12 +8,16 @@ float PCM written straight into numpy buffers. The library is compiled into
 
 Degradation ladder, as in the JAX package: the native library, then OpenCV
 for video and the standard library's ``wave`` for WAV audio, then an error.
+Every exception that ``probe``, ``read_video`` or ``read_audio`` raises
+carries the reader's name (:func:`is_read_failure`), so that a tool can skip
+a file it could not read without skipping a failure of the stages after it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import subprocess
 from typing import Optional, Tuple
@@ -51,6 +55,26 @@ class MediaInfo:
 
 _lib = None
 _lib_tried = False
+READ_FAILURE = "ingest_read_failure"
+
+
+def _marks_failures(reader):
+    """``reader``, with every exception it raises marked by its name."""
+    @functools.wraps(reader)
+    def read(*args, **kwargs):
+        try:
+            return reader(*args, **kwargs)
+        except Exception as e:
+            if not hasattr(e, READ_FAILURE):
+                setattr(e, READ_FAILURE, reader.__name__)
+            raise
+    return read
+
+
+def is_read_failure(exc: BaseException) -> bool:
+    """Whether ``exc`` came out of ``probe``, ``read_video`` or
+    ``read_audio``: the file could not be read."""
+    return hasattr(exc, READ_FAILURE)
 
 
 def get_native_lib():
@@ -83,6 +107,7 @@ def get_native_lib():
     return _lib
 
 
+@_marks_failures
 def probe(path: os.PathLike) -> MediaInfo:
     """Container metadata without decoding."""
     lib = get_native_lib()
@@ -116,6 +141,7 @@ def _probe_cv2(path) -> MediaInfo:
     )
 
 
+@_marks_failures
 def read_video(
     path: os.PathLike,
     target_fps: float = 15.0,
@@ -196,6 +222,7 @@ def _read_video_cv2(path, target_fps, max_frames, out_size=None) -> np.ndarray:
     return np.stack(frames)
 
 
+@_marks_failures
 def read_audio(path: os.PathLike, sr: int = 16000) -> np.ndarray:
     """Mono float32 PCM at ``sr`` from any container (audio or video)."""
     lib = get_native_lib()

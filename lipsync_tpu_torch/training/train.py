@@ -347,6 +347,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(ModelConfig.detect_artifacts=False)")
     p.add_argument("--max-steps-per-epoch", type=int, default=None,
                    help="Debug cap on steps per epoch")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: every card, one process "
+                        "each; cuda:0 on a one-card host; 'cpu' to run on "
+                        "the CPU)")
     return p
 
 
@@ -485,7 +489,8 @@ def _train(args, detector_backend, dev: torch.device) -> Dict[str, float]:
 
 
 def main() -> None:
-    run_training(build_argparser().parse_args())
+    args = build_argparser().parse_args()
+    run_training(args, device=args.device)
 
 
 if __name__ == "__main__":

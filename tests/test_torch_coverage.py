@@ -145,3 +145,89 @@ def test_the_table_is_only_renames_and_the_recorded_exceptions():
         "training/optimizers.py", "models/lip_sync_model.py",
         "models/convert.py", "ops/image.py", "parallel/mesh.py",
         "serving/schemas.py"}
+
+
+# ── the scripts tier ─────────────────────────────────────────────────────
+#
+# Every script under scripts/ that imports the JAX package or JAX, or runs
+# the JAX package with ``python -m``, has a tool of the same name in
+# lipsync_tpu_torch/tools/, or stands here; ROADMAP.md ("A′. The scripts
+# tier") lists the same scripts in the order they are to be ported.
+
+SCRIPTS = ROOT / "scripts"
+TOOLS = PORT_PKG / "tools"
+SCRIPTS_LATER = {
+    # the remaining evaluation harnesses
+    "eval_robustness_grid", "eval_unseen_fakes", "eval_multiface",
+    "eval_cross_tier", "eval_shared_encoding", "eval_shared_encoding_flips",
+    "eval_crop_agreement",
+    # the diagnostics
+    "diagnose_videos", "diagnose_sync_signal", "debug_clips",
+    "inspect_preprocessed_window", "measure_articulation_bands",
+    "check_epoch", "checking_threshold", "probe_link_engine",
+    # the pinned fine-tune launcher
+    "run_finetune_strict_venv",
+    # the profilers
+    "profile_forward", "profile_host",
+    # the benchmarks, with the benchmark
+    "bench_coalesce_r5", "bench_fold", "bench_haar", "bench_int8",
+    "bench_predictor", "bench_serving", "bench_train_scaling",
+    "diagnose_int8",
+}
+
+
+def _drives_the_jax_package(path: Path) -> bool:
+    """The script imports JAX or the JAX package, or names one of the JAX
+    package's modules as a string (what ``python -m`` runs)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            names = [] if not node.value.startswith("lipsync_tpu.") else [
+                node.value]
+        else:
+            continue
+        if any(n.split(".")[0] in ("jax", "lipsync_tpu") for n in names):
+            return True
+    return False
+
+
+DRIVING = sorted(p.stem for p in SCRIPTS.glob("*.py")
+                 if _drives_the_jax_package(p))
+
+
+def test_the_script_walk_finds_the_jax_scripts():
+    """36 scripts import JAX or the JAX package; two more run it with
+    ``python -m``."""
+    assert len(DRIVING) == 38
+    assert {"run_synthetic_eval", "run_finetune_strict_venv",
+            "validate_pipeline"} <= set(DRIVING)
+    assert "download_grid_corpus" not in DRIVING
+
+
+@pytest.mark.parametrize("script", DRIVING)
+def test_every_jax_script_has_a_tool(script):
+    assert (TOOLS / f"{script}.py").is_file() or script in SCRIPTS_LATER, (
+        f"scripts/{script}.py has no lipsync_tpu_torch/tools/{script}.py "
+        "and is not in SCRIPTS_LATER")
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS_LATER))
+def test_every_script_left_is_current(script):
+    """An entry names a script that drives the JAX package and has no
+    tool yet (a ported one must go)."""
+    assert script in DRIVING, script
+    assert not (TOOLS / f"{script}.py").exists(), f"{script} is ported"
+
+
+def test_scripts_left_are_the_roadmap_list():
+    import re
+
+    text = (ROOT / "ROADMAP.md").read_text()
+    start = text.index("Left, in order",
+                       text.index("### A′. The scripts tier"))
+    section = text[start:text.index("\n### ", start)]
+    named = set(re.findall(r"`(\w+)(?:\.py)?`", section))
+    assert named & set(DRIVING) == SCRIPTS_LATER
