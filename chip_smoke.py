@@ -179,7 +179,35 @@ each printed as one JSON line:
    Decode, muxing and haar detection are held on the CPU only, by
    ``tests/test_torch_tools_*.py`` (no FFmpeg or cascade files there).
 
-Phases 5-12 record the shape and dtype of every input that their main
+13. the evaluation harnesses and the diagnostics (``evaluation``), each
+   through its ``main(argv)`` on the calibrated weights saved as a ``.pth``
+   and on clips rendered in memory: an envelope and a phoneme tier (3
+   clips per class, 3 s) and the nine fake constructions of
+   ``eval_unseen_fakes`` (2 per class) precomputed on the card;
+   ``eval_cross_tier`` over both tiers in process and over one through a
+   ``python -m ...validate_pipeline`` subprocess; ``eval_unseen_fakes``;
+   ``eval_robustness_grid`` over its 12 cells without a codec, a codec
+   cell (which must raise: no FFmpeg there) and ``--quantized-int8`` on
+   ``clean``; ``eval_shared_encoding`` (3 tracks of 120 frames);
+   ``eval_shared_encoding_flips`` (4 clips); ``eval_multiface`` and
+   ``measure_articulation_bands`` on a 2-face and a 3-face scene whose
+   detector knows every face's box (``SceneBoxes``; the tracker is the
+   real one); ``debug_clips``; ``diagnose_sync_signal`` and
+   ``inspect_preprocessed_window`` on a tier; ``probe_link_engine`` at
+   batch 32, 2 groups, 2 iterations; ``check_epoch`` on a checkpoint the
+   phase writes; ``checking_threshold`` on the cross-tier predictions;
+   ``diagnose_videos`` on a garbage and a missing file through the port's
+   own ingest; ``eval_crop_agreement`` at ``--n 50``. Checks: every tool
+   returns, no failed clip or error row, each JSON output carries the JAX
+   script's keys (``EVAL_KEYS``), finite shared-encoding deviations, every
+   scene face recovered, K1 once per clip precomputed, per track and per
+   ``predict``, K2 once per eval-mode forward, K3 and K4 24 times per int8
+   forward and only in the int8 grid, and a raising K2 (``eval_cross_tier``,
+   whose tiers are preprocessed) or K1 (``debug_clips``) ends the run.
+   Every tool's seconds, windows/s of the engine-bound ones, and the
+   probe's link MB/s and windows/s.
+
+Phases 5-13 record the shape and dtype of every input that their main
 runs give each kernel's wrapper (for K3 also the weight shape, stride,
 padding, bias and output dtype; for K4 the memory layout); each must be
 one that phase 3, 4 or 4b held against the twin
@@ -235,10 +263,14 @@ PEAKS = {
 SIMT, TENSOR, INT8 = "fp32 SIMT", "TF32 tensor cores", "int8 tensor cores"
 # K2 inputs of the served paths beyond phase 4's batches: the server's
 # warmup (a two-window track), concurrent requests coalesced into buckets
-# of 2, 4 and 8 one-window requests, and phase 10's shards (a bucket split
+# of 2, 4 and 8 one-window requests, phase 10's shards (a bucket split
 # over two: R3's 128 windows in halves of 64, R2's 16 in halves of 8, a
-# ragged bucket of 8 in halves of 4).
-K2_EXTRA_BATCHES = (2, 4, 8, 64)
+# ragged bucket of 8 in halves of 4), and phase 13's link probe (groups of
+# 32 windows).
+K2_EXTRA_BATCHES = (2, 4, 8, 32, 64)
+# K1 inputs beyond phase 3's timed buckets: phase 13's shared-encoding
+# tracks (120 frames, 8 s of PCM in a bucket of 131072 samples).
+K1_EXTRA_SAMPLES = (1 << 17,)
 
 
 def emit(obj) -> None:
@@ -3228,6 +3260,614 @@ def tools_phase(dev, cfg, smi, record) -> dict:
     return launches
 
 
+EVAL_SECONDS = 3.0
+# Clips per class: each preprocessed tier (envelope, phoneme) and each of
+# the nine fake constructions of eval_unseen_fakes.
+EVAL_TIER_CLIPS, EVAL_UNSEEN_CLIPS = 3, 2
+EVAL_CONSTRUCTIONS = ("shift", "swap", "scramble", "warp", "splice",
+                      "freeze", "revoice", "retime", "composite")
+# (scene, faces, seed) of the multi-face scenes: a synced speaker and a
+# listener; a synced and a dubbed speaker beside a listener.
+EVAL_SCENES = (("all_real", 2, 31), ("mixed", 3, 32))
+EVAL_TRACKS, EVAL_TRACK_FRAMES, EVAL_FLIP_CLIPS = 3, 120, 4
+EVAL_PROBE = ("--batch", "32", "--groups", "2", "--iters", "2")
+# The robustness grid's cells without a codec (the card's machine has no
+# FFmpeg, so a codec cell must raise there).
+EVAL_GRID_CELLS = ("clean", "vis_noise_0.02", "vis_noise_0.05",
+                   "vis_noise_0.10", "brightness_0.7", "brightness_1.3",
+                   "mel_noise_2db", "mel_noise_5db", "av_shift_1f",
+                   "av_shift_2f", "av_shift_4f", "av_shift_8f")
+# The JSON keys of the JAX package's scripts, which the tools' outputs
+# carry (tests/test_torch_tools_{harness,diagnose}.py hold them equal to
+# the scripts' on the CPU).
+EVAL_METRICS = {"roc_auc", "accuracy", "f1", "precision", "recall", "total"}
+EVAL_KEYS = {
+    "eval_cross_tier": {"model", "model_path", "tiers"},
+    "eval_unseen_fakes": {"model", "model_path", "n_per_class",
+                          "seen_in_training", "unseen_constructions",
+                          "constructions"},
+    "eval_robustness_grid": {"preprocessed_dir", "clips_scored",
+                             "threshold", "seed", "timestamp", "cells"},
+    "grid_cell": {"roc_auc", "accuracy", "real_flagged_fake",
+                  "fake_flagged_fake", "mean_p_fake_real_clips"},
+    "eval_shared_encoding": {"platform", "n_tracks", "n_frames_per_track",
+                             "n_windows", "prob_abs_diff",
+                             "windowed_s_per_track_p50",
+                             "shared_s_per_track_p50", "speedup"},
+    "eval_shared_encoding_flips": {"n_clips", "model_path", "data_dir",
+                                   "verdict_flips", "flip_details",
+                                   "confidence_abs_delta"},
+    "eval_multiface": {"summary", "clips"},
+    "multiface_group": {
+        "clips", "face_recovery", "spurious_tracks_per_clip",
+        "speaker_track_match_rate", "speaker_verdict_accuracy",
+        "clip_verdict_accuracy", "clip_uncertain_rate",
+        "speaker_case_accuracy", "policy_accuracy", "timeline_attribution",
+        "timeline_windows", "listener_mean_speaking_activity",
+        "speaker_mean_speaking_activity", "mean_elapsed_sec"},
+    "multiface_clip": {
+        "clip", "scene", "n_tracks", "faces_recovered", "n_faces",
+        "spurious_tracks", "speaker_rows", "listener_rows", "clip_gt_fake",
+        "clip_verdict", "clip_verdict_correct", "speaker_case_pred",
+        "speaker_case_gt", "speaking_tracks_count", "gt_speaker_count",
+        "policy_correct", "timeline_total", "timeline_correct",
+        "turn_taking_detected", "elapsed_sec"},
+    "measure_articulation_bands": {"midpoint_constant", "scale_constant",
+                                   "families"},
+    "bands_family": {"clips", "speaker_band", "listener_band",
+                     "separation_min_speaker_minus_max_listener",
+                     "speaker_above_midpoint_frac",
+                     "listener_below_midpoint_frac"},
+    "debug_clips": {"motion", "audio_energy", "alignment_score",
+                    "mouth_check"},
+    "diagnose_sync_signal": {"n_clips", "n_real", "n_fake", "corr_open_env",
+                             "corr_motion_denv"},
+    "eval_crop_agreement": {"n_faces", "iou_vs_landmark_analog",
+                            "iou_vs_raw_lips", "refined_changed_frac",
+                            "refine_ms_per_frame", "learned_ms_per_frame"},
+    "diagnose_videos": {"path", "probe", "decode", "audio"},
+}
+
+
+class SceneBoxes(ClipBoxes):
+    """A detector for multi-face scenes: every face's mouth box in each
+    known frame, looked up by a hash of the whole frame (the scenes' frames
+    differ in few pixels). Keeps no per-video state."""
+
+    @staticmethod
+    def key(frame) -> bytes:
+        import hashlib
+
+        return hashlib.blake2b(frame.tobytes(), digest_size=16).digest()
+
+    def add(self, frames, boxes) -> None:
+        for f, bs in zip(frames, boxes):
+            self.boxes[self.key(f)] = [tuple(b) for b in bs]
+
+    def detect(self, frame):
+        from lipsync_tpu_torch.preprocessing.face_detection import Detection
+
+        return [Detection(bbox=b, detector="fake")
+                for b in self.boxes.get(self.key(frame), [])]
+
+
+def scene_mouth_boxes(frames, geo, cell_w: int = 170):
+    """Each face's mouth box per frame of a rendered scene: the face
+    ellipse of ``render_multiface_clip`` (half axes 0.24 cell and 0.30
+    height, times the face's scale, around its center in that frame)
+    through the face-to-mouth heuristic that the cascade tier applies."""
+    from lipsync_tpu_torch.preprocessing.face_detection import (
+        face_bbox_to_mouth_bbox,
+    )
+
+    h, w = frames.shape[1:3]
+    out = []
+    for i in range(len(frames)):
+        boxes = []
+        for g in geo:
+            cx, cy = g["centers"][i]
+            hw, hh = cell_w * 0.24 * g["scale"], h * 0.30 * g["scale"]
+            boxes.append(face_bbox_to_mouth_bbox(
+                int(cx - hw), int(cy - hh), int(2 * hw), int(2 * hh), w, h))
+        out.append(boxes)
+    return out
+
+
+def evaluation_phase(dev, cfg, smi, weights, record) -> dict:
+    """The evaluation harnesses and the diagnostics at ``ModelConfig()``
+    width, each through its ``main(argv)`` on the calibrated weights saved
+    as a ``.pth``, on clips that ``tools/make_synthetic_dataset.py`` renders
+    in memory (``INGEST`` says why) and ``precompute_training_tensors``
+    writes on the card: ``eval_cross_tier`` over an envelope and a phoneme
+    tier (in process, and once more through a ``validate_pipeline``
+    subprocess), ``eval_unseen_fakes`` over the nine constructions,
+    ``eval_robustness_grid`` over every cell without a codec (a codec cell
+    must raise: no FFmpeg there) and with ``--quantized-int8`` on ``clean``,
+    ``eval_shared_encoding``, ``eval_shared_encoding_flips``,
+    ``eval_multiface`` and ``measure_articulation_bands`` on a 2-face and a
+    3-face scene (a detector that knows every face's box, the real
+    tracker), ``debug_clips``, ``diagnose_sync_signal``,
+    ``inspect_preprocessed_window``, ``probe_link_engine``, ``check_epoch``,
+    ``checking_threshold``, ``diagnose_videos`` (the port's own ingest on a
+    garbage file and a missing one) and ``eval_crop_agreement``. Checks:
+    every tool returns, no failed clip and no error row, each JSON output
+    has the JAX script's keys, K1 once per clip precomputed, per track
+    and per ``predict``, K2 once per eval-mode forward, K3 and K4 24 times
+    per int8 forward and only in the int8 run, and a raising K2 or K1 ends
+    ``eval_cross_tier`` and ``debug_clips``. Returns the kernels' launches
+    over its main runs."""
+    import argparse
+    import csv
+    import io
+
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.models import artifact as artifact_mod
+    from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.preprocessing import audio as audio_mod
+    from lipsync_tpu_torch.preprocessing import ingest
+    from lipsync_tpu_torch.preprocessing.face_detection import (
+        FakeDetector,
+        center_crop_box,
+    )
+    from lipsync_tpu_torch.tools import (
+        check_epoch,
+        checking_threshold,
+        debug_clips,
+        diagnose_sync_signal,
+        diagnose_videos,
+        eval_crop_agreement,
+        eval_cross_tier,
+        eval_multiface,
+        eval_robustness_grid,
+        eval_shared_encoding,
+        eval_shared_encoding_flips,
+        eval_unseen_fakes,
+        inspect_preprocessed_window,
+    )
+    from lipsync_tpu_torch.tools import make_synthetic_dataset as gen
+    from lipsync_tpu_torch.tools import measure_articulation_bands as bands
+    from lipsync_tpu_torch.tools import precompute_training_tensors as pre
+    from lipsync_tpu_torch.tools import probe_link_engine
+    from lipsync_tpu_torch.training.checkpoints import save_checkpoint
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    fps, sr = 15.0, 16000
+    on_card = ["--device", str(dev)]
+    memory = InMemoryClips(ingest, fps)
+    model_path = work / "bn_calibrated.pth"
+    torch.save({k: v.detach().cpu() for k, v in weights.items()}, model_path)
+
+    # ── the clips, rendered in memory ─────────────────────────────────────
+    t0 = time.perf_counter()
+
+    def serve(path: Path, frames, pcm) -> None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.touch()
+        memory.add(str(path.relative_to(work)), frames, pcm, path=str(path))
+
+    raw = {"envelope": work / "raw_envelope", "phoneme": work / "raw_phoneme"}
+    for rel, frames, pcm in gen.envelope_clips(
+            EVAL_TIER_CLIPS, EVAL_SECONDS, fps, sr, 41, jitter=True,
+            hard_negatives=True):
+        serve(raw["envelope"] / rel, frames, pcm)
+    gen_args = argparse.Namespace(sr=sr, fps=fps, seconds=EVAL_SECONDS,
+                                  jitter=True, no_head_motion=False)
+
+    def phoneme_split(out: Path, n: int, seed: int, modes) -> None:
+        rng = np.random.RandomState(seed)
+        for i in range(n):
+            real, fake = gen.phoneme_pair(gen_args, rng, i, modes)
+            serve(out / "0_real" / f"real_{i:04d}.avi", *real)
+            serve(out / "1_fake" / f"fake_{i:04d}.avi", *fake)
+
+    phoneme_split(raw["phoneme"], EVAL_TIER_CLIPS, 42,
+                  ("shift", "swap", "scramble"))
+    unseen = work / "unseen"
+    for k, c in enumerate(EVAL_CONSTRUCTIONS):
+        phoneme_split(unseen / f"raw_{c}", EVAL_UNSEEN_CLIPS, 101 + k, (c,))
+    scene_boxes = SceneBoxes()
+    scene_dirs = {"two": work / "scenes_2f", "three": work / "scenes_3f"}
+    for (scene, n_faces, seed), family in zip(EVAL_SCENES, scene_dirs):
+        frames, pcm, truth, geo = gen.multiface_scene(
+            scene, n_faces, EVAL_SECONDS, fps, sr,
+            np.random.RandomState(seed))
+        scene_boxes.add(frames, scene_mouth_boxes(frames, geo))
+        for d in (scene_dirs[family], work / "scenes"):
+            serve(d / f"{scene}_0000.avi", frames, pcm)
+            (d / f"{scene}_0000.json").write_text(json.dumps(truth))
+    flips = work / "flips"
+    for rel in ("0_real/real_0000.avi", "0_real/real_0001.avi",
+                "1_fake/fake_0000.avi", "1_fake/fake_0001.avi"):
+        serve(flips / rel, *memory.clips[str(raw["envelope"] / rel)])
+    debug_clip = raw["envelope"] / "0_real" / "real_0000.avi"
+    render_s = time.perf_counter() - t0
+    box = center_crop_box(*memory.clips[str(debug_clip)][0].shape[1:3], 96)
+
+    def detector():
+        return FakeDetector(lambda i: [box])
+
+    # ── launches and seconds per tool ─────────────────────────────────────
+    # An eval-mode forward is a ``score_encoded`` call: ``forward`` makes
+    # one, and the shared-encoding engine calls it after encoding a track.
+    forwards = {"eval": 0, "int8": 0}
+    real_scoring = LipSyncModel.score_encoded
+
+    def counted_scoring(model, *args, **kwargs):
+        if not model.training:
+            forwards["eval"] += 1
+            forwards["int8"] += model.config.conv_lowering == "int8"
+        return real_scoring(model, *args, **kwargs)
+
+    counters = (k1, k2, k3, k4)
+    per_stage, seconds, printed = {}, {}, {}
+
+    def stage(name, fn):
+        """``fn()`` as one tool run: its launches (K1, K2, K3, K4, eval-mode
+        forwards, int8 forwards), its synchronised wall time and what it
+        printed."""
+        before = [c.launches for c in counters] + list(forwards.values())
+        out = io.StringIO()
+        sync()
+        t1 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                result = fn()
+        except BaseException:
+            print(out.getvalue()[-3000:], flush=True)
+            raise
+        sync()
+        seconds[name] = time.perf_counter() - t1
+        after = [c.launches for c in counters] + list(forwards.values())
+        per_stage[name] = [a - b for a, b in zip(after, before)]
+        printed[name] = out.getvalue()
+        return result
+
+    # eval_cross_tier scores each tier in a temporary directory; keep the
+    # in-process run's predictions for checking_threshold.
+    kept = work / "cross_tier_predictions"
+    real_score_tier = eval_cross_tier.score_tier
+
+    def keeping_score_tier(model_path, pre_dir, out_dir, *args, **kwargs):
+        m = real_score_tier(model_path, pre_dir, out_dir, *args, **kwargs)
+        if kwargs.get("engine") is not None:
+            kept.mkdir(exist_ok=True)
+            shutil.copy(Path(out_dir) / "predictions.csv",
+                        kept / f"{Path(pre_dir).name}.csv")
+        return m
+
+    pre_dirs = {t: work / f"pre_{t}" for t in raw}
+    tier_argv = [arg for t in raw for arg in
+                 ("--test-dir", f"{t}={pre_dirs[t]}")]
+    platt = ["--calibration-platt-a", "1.3", "--calibration-platt-b", "0.1"]
+    outputs, counts = {}, {}
+    ckpt = work / "weights" / "best_model_accuracy"
+    save_checkpoint(ckpt, weights, metadata={
+        "epoch": 3, "phase": 2, "model_config": {
+            "video_frames": cfg.video_frames, "crop_size": cfg.crop_size,
+            "audio_frames": cfg.audio_frames}})
+
+    def grid(out, *flags):
+        return stage(out, lambda: eval_robustness_grid.main([
+            "--preprocessed-dir", str(pre_dirs["envelope"]), "--model-path",
+            str(model_path), "--output", str(work / f"{out}.json"), *flags,
+            *on_card]))
+
+    LipSyncModel.score_encoded = counted_scoring
+    eval_cross_tier.score_tier = keeping_score_tier
+    eval_unseen_fakes.score_tier = keeping_score_tier
+    try:
+        with record(), memory.installed():
+            k1.launches = k2.launches = k3.launches = k4.launches = 0
+            for name, src, dst in (
+                    *((t, raw[t], pre_dirs[t]) for t in raw),
+                    *((c, unseen / f"raw_{c}", unseen / f"pre_{c}")
+                      for c in EVAL_CONSTRUCTIONS)):
+                counts[name] = stage(f"precompute_{name}", lambda: pre.main([
+                    "--data-dir", str(src), "--output-dir", str(dst),
+                    "--mode", "full_sequence", "--storage-format", "zarr",
+                    "--no-face-detection", *on_card]))
+            outputs["eval_cross_tier"] = stage(
+                "eval_cross_tier", lambda: eval_cross_tier.main([
+                    "--model-path", str(model_path), *tier_argv, *platt,
+                    "--in-process", "--output",
+                    str(work / "cross_tier.json"), *on_card]))
+            outputs["eval_cross_tier_subprocess"] = stage(
+                "eval_cross_tier_subprocess", lambda: eval_cross_tier.main([
+                    "--model-path", str(model_path), "--test-dir",
+                    f"envelope={pre_dirs['envelope']}", *platt, "--output",
+                    str(work / "cross_tier_subprocess.json"), *on_card]))
+            outputs["eval_unseen_fakes"] = stage(
+                "eval_unseen_fakes", lambda: eval_unseen_fakes.main([
+                    "--model-path", str(model_path), "--work-dir",
+                    str(unseen), "--n-per-class", str(EVAL_UNSEEN_CLIPS),
+                    "--skip-generate", "--skip-precompute", "--in-process",
+                    *platt, "--output", str(work / "unseen.json"),
+                    *on_card]))
+            outputs["eval_robustness_grid"] = grid(
+                "grid", "--cells", ",".join(EVAL_GRID_CELLS))
+            try:
+                grid("grid_codec", "--cells", "codec_crf23")
+                codec_error = None
+            except Exception as e:  # the codec cell must raise here
+                codec_error = f"{type(e).__name__}: {e}"[:300]
+            outputs["eval_robustness_grid_int8"] = grid(
+                "grid_int8", "--cells", "clean", "--quantized-int8")
+            outputs["eval_shared_encoding"] = stage(
+                "eval_shared_encoding", lambda: eval_shared_encoding.main([
+                    "--n-tracks", str(EVAL_TRACKS), "--n-frames",
+                    str(EVAL_TRACK_FRAMES), "--out",
+                    str(work / "shared.json"), *on_card]))
+            outputs["eval_shared_encoding_flips"] = stage(
+                "eval_shared_encoding_flips",
+                lambda: eval_shared_encoding_flips.main([
+                    "--data-dir", str(flips), "--model-path",
+                    str(model_path), "--limit", str(EVAL_FLIP_CLIPS),
+                    "--out", str(work / "flips.json"), *on_card],
+                    detector_backend=detector()))
+            outputs["eval_multiface"] = stage(
+                "eval_multiface", lambda: eval_multiface.main([
+                    "--data-dir", str(work / "scenes"), "--model-path",
+                    str(model_path), "--speaking-score-mode", "articulation",
+                    "--output", str(work / "multiface.json"), *on_card],
+                    detector_backend=scene_boxes))
+            outputs["measure_articulation_bands"] = stage(
+                "measure_articulation_bands", lambda: bands.main([
+                    *(a for f, d in scene_dirs.items()
+                      for a in ("--data-dir", f"{f}={d}")),
+                    "--out", str(work / "bands.json"), *on_card],
+                    backend=scene_boxes))
+            outputs["debug_clips"] = stage(
+                "debug_clips", lambda: debug_clips.main([
+                    "--video", str(debug_clip), "--out",
+                    str(work / "debug.png"), *on_card], backend=detector()))
+            outputs["diagnose_sync_signal"] = stage(
+                "diagnose_sync_signal", lambda: diagnose_sync_signal.main([
+                    "--preprocessed-dir", str(pre_dirs["envelope"]),
+                    "--json-out", str(work / "sync.json")]))
+            outputs["inspect_preprocessed_window"] = stage(
+                "inspect_preprocessed_window",
+                lambda: inspect_preprocessed_window.main([
+                    "--preprocessed-dir", str(pre_dirs["phoneme"]),
+                    "--index", "1", "--out", str(work / "window.png")]))
+            outputs["probe_link_engine"] = stage(
+                "probe_link_engine",
+                lambda: probe_link_engine.main([*EVAL_PROBE, *on_card]))
+            outputs["check_epoch"] = stage(
+                "check_epoch", lambda: check_epoch.main(
+                    [str(ckpt), str(work / "weights" / "missing")]))
+            outputs["checking_threshold"] = stage(
+                "checking_threshold", lambda: checking_threshold.main(
+                    [str(kept / "pre_envelope.csv")]))
+        launches = {"log_mel": k1.launches, "hf_stem": k2.launches,
+                    "int8_conv": k3.launches, "int8_quant": k4.launches}
+    finally:
+        LipSyncModel.score_encoded = real_scoring
+        eval_cross_tier.score_tier = real_score_tier
+        eval_unseen_fakes.score_tier = real_score_tier
+
+    # The host-only tools, on the port's own ingest (no stand-in).
+    bad = work / "bad_videos"
+    bad.mkdir()
+    (bad / "garbage.mp4").write_bytes(b"\x00 not a video " * 64)
+    (bad / "missing.avi").symlink_to(work / "gone.avi")
+    outputs["diagnose_videos"] = stage(
+        "diagnose_videos", lambda: diagnose_videos.main(
+            ["--data-dir", str(bad)]))
+    outputs["eval_crop_agreement"] = stage(
+        "eval_crop_agreement", lambda: eval_crop_agreement.main(
+            ["--n", "50", "--out", str(work / "crops.json")]))
+
+    # A raising kernel wrapper ends the harness: K2 in eval_cross_tier (its
+    # tiers are preprocessed, so K2 is the kernel it runs), K1 in
+    # debug_clips. Launches after the main runs' counts were read.
+    def raising(what):
+        def fn(*args, **kwargs):
+            raise RuntimeError(f"{what} kernel launch failed (injected)")
+        return fn
+
+    injected = {}
+    with memory.installed():
+        for name, owner, attr, fn in (
+                ("eval_cross_tier", artifact_mod, "hf_stem",
+                 lambda: eval_cross_tier.main([
+                     "--model-path", str(model_path), *tier_argv,
+                     "--in-process", *on_card])),
+                ("debug_clips", audio_mod, "log_mel_spectrogram_fused",
+                 lambda: debug_clips.main([
+                     "--video", str(debug_clip), "--out",
+                     str(work / "debug_failed.png"), *on_card],
+                     backend=detector()))):
+            saved = getattr(owner, attr)
+            setattr(owner, attr, raising(attr))
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    fn()
+                injected[name] = None
+            except RuntimeError as e:
+                injected[name] = str(e)
+            finally:
+                setattr(owner, attr, saved)
+
+    # ── readings ──────────────────────────────────────────────────────────
+    def read_json(name):
+        return json.loads((work / name).read_text())
+
+    cross = read_json("cross_tier.json")
+    sub = read_json("cross_tier_subprocess.json")
+    unseen_out = read_json("unseen.json")
+    grid_out, grid8 = read_json("grid.json"), read_json("grid_int8.json")
+    shared, flips_out = read_json("shared.json"), read_json("flips.json")
+    mface, bands_out = read_json("multiface.json"), read_json("bands.json")
+    sync_out, crops = read_json("sync.json"), read_json("crops.json")
+    with (kept / "pre_envelope.csv").open() as f:
+        kept_rows = {"envelope": list(csv.DictReader(f))}
+    with (kept / "pre_phoneme.csv").open() as f:
+        kept_rows["phoneme"] = list(csv.DictReader(f))
+    tier_windows = 2 * EVAL_TIER_CLIPS
+    windows = {
+        "eval_cross_tier": 2 * tier_windows,
+        "eval_cross_tier_subprocess": tier_windows,
+        "eval_unseen_fakes": 2 * EVAL_UNSEEN_CLIPS * len(EVAL_CONSTRUCTIONS),
+        "grid": len(EVAL_GRID_CELLS) * tier_windows,
+        "grid_int8": tier_windows,
+        "eval_shared_encoding": shared["n_windows"]}
+    probe = outputs["probe_link_engine"]
+    readings = {
+        "phase": "evaluation", "nvidia_smi": smi, "render_s": render_s,
+        "tool_s": {k: v for k, v in seconds.items()
+                   if not k.startswith("precompute_")},
+        "precompute_s": sum(v for k, v in seconds.items()
+                            if k.startswith("precompute_")),
+        "windows_per_s": {k: n / seconds[k] for k, n in windows.items()},
+        "predicts_per_s": {
+            "eval_shared_encoding_flips":
+                2 * EVAL_FLIP_CLIPS / seconds["eval_shared_encoding_flips"],
+            "eval_multiface": len(EVAL_SCENES) / seconds["eval_multiface"]},
+        "probe_link_engine": probe,
+        "launches": launches,
+        "per_stage_k1_k2_k3_k4_forwards_int8forwards": per_stage,
+        "precompute_counts": counts,
+        "cross_tier": cross["tiers"], "cross_tier_subprocess": sub["tiers"],
+        "unseen": {c: {k: m.get(k) for k in ("roc_auc", "recall", "total")}
+                   for c, m in unseen_out["constructions"].items()},
+        "grid_clean": grid_out["cells"]["clean"],
+        "grid_int8_clean": grid8["cells"]["clean"],
+        "codec_cell_error": codec_error,
+        "shared_encoding": shared,
+        "flips": {k: flips_out[k] for k in ("n_clips", "verdict_flips",
+                                            "confidence_abs_delta")},
+        "multiface_overall": mface["summary"]["overall"],
+        "bands": bands_out["families"],
+        "debug_clips": {
+            "alignment_score": float(outputs["debug_clips"][
+                "alignment_score"]),
+            "mouth_check": str(outputs["debug_clips"]["mouth_check"])[:200]},
+        "sync_signal": sync_out,
+        "crop_agreement": crops["iou_vs_landmark_analog"],
+        "diagnose_videos": [{k: r[k] for k in ("decode", "audio")}
+                            for r in outputs["diagnose_videos"]],
+        "injected_failures": injected,
+        "phase_s": time.perf_counter() - t_phase}
+    emit(readings)
+
+    # Every number is printed above before any is checked.
+    for name in ("eval_cross_tier", "eval_cross_tier_subprocess",
+                 "eval_unseen_fakes", "eval_shared_encoding",
+                 "eval_shared_encoding_flips", "eval_multiface",
+                 "measure_articulation_bands", "check_epoch"):
+        check(outputs[name] == 0, f"{name} returned {outputs[name]}")
+    for name, c in counts.items():
+        n = 2 * (EVAL_TIER_CLIPS if name in raw else EVAL_UNSEEN_CLIPS)
+        check(c["failed"] == 0 and c["new"] == n,
+              f"precompute {name}: {c}")
+    for out, key in ((cross, "eval_cross_tier"), (sub, "eval_cross_tier"),
+                     (unseen_out, "eval_unseen_fakes"),
+                     (grid_out, "eval_robustness_grid"),
+                     (grid8, "eval_robustness_grid"),
+                     (shared, "eval_shared_encoding"),
+                     (flips_out, "eval_shared_encoding_flips"),
+                     (mface, "eval_multiface"),
+                     (bands_out, "measure_articulation_bands"),
+                     (outputs["debug_clips"], "debug_clips"),
+                     (sync_out, "diagnose_sync_signal"),
+                     (crops, "eval_crop_agreement")):
+        check(set(out) == EVAL_KEYS[key], f"{key} keys {sorted(out)}")
+    for tiers, n in ((cross["tiers"], 2), (sub["tiers"], 1)):
+        check(len(tiers) == n and all(
+            set(m) == EVAL_METRICS and m["total"] == tier_windows
+            for m in tiers.values()), f"cross-tier metrics {tiers}")
+    for tier, rows in kept_rows.items():
+        check(len(rows) == tier_windows
+              and not any(r["verdict"] == "error" for r in rows),
+              f"cross-tier {tier}: error rows")
+    check(set(unseen_out["constructions"]) == set(EVAL_CONSTRUCTIONS)
+          and all(set(m) == EVAL_METRICS | {"unseen"}
+                  and m["total"] == 2 * EVAL_UNSEEN_CLIPS
+                  and m["unseen"] == (c not in ("shift", "swap", "scramble"))
+                  for c, m in unseen_out["constructions"].items()),
+          f"unseen constructions {unseen_out['constructions']}")
+    check(list(grid_out["cells"]) == list(EVAL_GRID_CELLS)
+          and list(grid8["cells"]) == ["clean"]
+          and grid_out["clips_scored"] == grid8["clips_scored"] == tier_windows
+          and all(set(c) == EVAL_KEYS["grid_cell"]
+                  for c in [*grid_out["cells"].values(),
+                            *grid8["cells"].values()]),
+          "robustness grid cells")
+    check(codec_error is not None, "a codec cell ran without FFmpeg")
+    check(shared["platform"] == dev.type
+          and shared["n_windows"] == EVAL_TRACKS * (
+              (EVAL_TRACK_FRAMES - cfg.video_frames) // STRIDE + 1)
+          and all(np.isfinite(v) for v in shared["prob_abs_diff"].values()),
+          f"shared encoding {shared}")
+    check(flips_out["n_clips"] == EVAL_FLIP_CLIPS
+          and all(np.isfinite(v)
+                  for v in flips_out["confidence_abs_delta"].values()),
+          f"flips {flips_out}")
+    check(len(mface["clips"]) == len(EVAL_SCENES)
+          and all(set(r) == EVAL_KEYS["multiface_clip"]
+                  for r in mface["clips"])
+          and all(set(g) == EVAL_KEYS["multiface_group"]
+                  for g in mface["summary"].values())
+          and mface["summary"]["overall"]["face_recovery"] == 1.0,
+          f"multiface {mface['summary']['overall']}")
+    check(all(f["clips"] == 1 and set(f) == EVAL_KEYS["bands_family"]
+              for f in bands_out["families"].values()),
+          f"articulation bands {bands_out['families']}")
+    check(sync_out["n_clips"] == tier_windows, f"sync signal {sync_out}")
+    window = outputs["inspect_preprocessed_window"]
+    check(tuple(np.asarray(window[0]).shape) == (
+        cfg.video_frames, cfg.crop_size, cfg.crop_size, 3),
+        "inspect_preprocessed_window")
+    check(len(probe["iters"]) == 2 and all(
+        it["link_mb_per_s"] > 0 and it["engine_windows_per_s"] > 0
+        for it in probe["iters"]), f"probe {probe}")
+    check('"epoch": 3' in printed["check_epoch"]
+          and "(no metadata)" in printed["check_epoch"], "check_epoch")
+    check(len(outputs["checking_threshold"]) == 19, "checking_threshold")
+    check(len(outputs["diagnose_videos"]) == 2 and all(
+        set(r) == EVAL_KEYS["diagnose_videos"]
+        and r["decode"].startswith("FAILED")
+        for r in outputs["diagnose_videos"]), "diagnose_videos")
+    check(crops["n_faces"] == 50, "eval_crop_agreement")
+    check(all(v is not None and "injected" in v for v in injected.values()),
+          f"an injected kernel failure did not end the run: {injected}")
+    # Launches per tool: K1 once per clip precomputed, per track and per
+    # predict, and nowhere else; K2 once per eval-mode forward, in every
+    # tool that runs the model; K3 and K4 24 times per int8 forward, only
+    # in the int8 grid.
+    k1_expected = {"eval_shared_encoding": EVAL_TRACKS,
+                   "eval_shared_encoding_flips": 2 * EVAL_FLIP_CLIPS,
+                   "eval_multiface": len(EVAL_SCENES), "debug_clips": 1}
+    engine_tools = {"eval_cross_tier", "eval_unseen_fakes", "grid",
+                    "grid_int8", "eval_shared_encoding",
+                    "eval_shared_encoding_flips", "eval_multiface",
+                    "probe_link_engine"}
+    for name, s in per_stage.items():
+        if name.startswith("precompute_"):
+            want_k1 = counts[name.removeprefix("precompute_")]["new"]
+        else:
+            want_k1 = k1_expected.get(name, 0)
+        check(s[0] == want_k1, f"{name}: K1 {s[0]}, expected {want_k1}")
+        check(s[1] == s[4] and (s[4] > 0) == (name in engine_tools),
+              f"{name}: K2 {s[1]} for {s[4]} eval forwards")
+        check(s[2] == s[3] == 24 * s[5] and (s[5] > 0) == (
+            name == "grid_int8"),
+            f"{name}: K3 {s[2]}, K4 {s[3]} for {s[5]} int8 forwards")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def world_of_one(work: Path) -> None:
     """The child of phase 10 (c), started by ``torch.distributed.run`` with
     one process: join its NCCL group, then one host-fed and one
@@ -3561,6 +4201,13 @@ def main() -> None:
                "gflop": flops / 1e9, "mbytes": n_bytes / 1e6}
         k1_rows[n] = row
         emit({"phase": "k1_mel", **row})
+    for n in K1_EXTRA_SAMPLES:  # held against the twin, untimed
+        y2 = torch.from_numpy(synthetic.pcm(rng, n)).to(dev)[None]
+        err = float((k1.finish_db(k1.log_mel_db(y2))
+                     - k1.finish_db(k1.log_mel_db_plain(y2))).abs().max())
+        check(err < 1e-3, f"K1 vs twin at n={n}: {err} dB")
+        checked["log_mel"].add(shape_key(y2))
+        emit({"phase": "k1_mel", "n": n, "max_abs_err_db": err})
 
     # Quiet bands: a loud tone over faint noise puts mel bands 75-80 dB
     # below the clip peak, where every fp32 DFT chain rounds to ~1.5e-3 dB.
@@ -3920,6 +4567,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     tools_launches = tools_phase(dev, cfg, smi, lambda: kernel_inputs(seen))
 
+    # ── 13. the evaluation harnesses and the diagnostics ──────────────
+    torch.cuda.empty_cache()
+    evaluation_launches = evaluation_phase(
+        dev, cfg, smi, weight_sets["bn_calibrated"],
+        lambda: kernel_inputs(seen))
+
     # Every input shape that the main runs gave a kernel was checked above.
     unchecked = {name: sorted(shapes - checked[name])
                  for name, shapes in seen.items()}
@@ -3929,7 +4582,7 @@ def main() -> None:
     check(not any(unchecked.values()),
           f"main-path kernel inputs not held against the twin: {unchecked}")
 
-    # ── 13. kernels ───────────────────────────────────────────────────
+    # ── 14. kernels ───────────────────────────────────────────────────
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
@@ -3965,6 +4618,7 @@ def main() -> None:
              dp_launches["by_device"]["log_mel"],
          "launches_completion": completion_launches["log_mel"],
          "launches_tools": tools_launches["log_mel"],
+         "launches_evaluation": evaluation_launches["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
@@ -3982,6 +4636,7 @@ def main() -> None:
              dp_launches["by_device"]["hf_stem"],
          "launches_completion": completion_launches["hf_stem"],
          "launches_tools": tools_launches["hf_stem"],
+         "launches_evaluation": evaluation_launches["hf_stem"],
          # under the fold (one cuDNN conv in K2's place): checked to be 0
          "launches_fold": option_launches["hf_stem_fold"],
          "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
@@ -3999,6 +4654,7 @@ def main() -> None:
              dp_launches["by_device"]["int8_conv"],
          "launches_completion": completion_launches["int8_conv"],
          "launches_tools": tools_launches["int8_conv"],
+         "launches_evaluation": evaluation_launches["int8_conv"],
          "shape": {k: k3m[k] for k in ("x", "w", "stride", "padding",
                                        "main_loop")},
          # ms, plain_ms and library_ms per call from CUDA events on the
@@ -4029,6 +4685,7 @@ def main() -> None:
              dp_launches["by_device"]["int8_quant"],
          "launches_completion": completion_launches["int8_quant"],
          "launches_tools": tools_launches["int8_quant"],
+         "launches_evaluation": evaluation_launches["int8_quant"],
          # the single launch on K3's input above, fp32 channels-last; the
          # old absmax + quantize pair in turns with it under "pair_ms"
          "shape": [k3m["x"][0], k3m["x"][-1], *k3m["x"][1:-1]],

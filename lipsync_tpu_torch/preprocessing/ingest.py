@@ -9,8 +9,9 @@ float PCM written straight into numpy buffers. The library is compiled into
 Degradation ladder, as in the JAX package: the native library, then OpenCV
 for video and the standard library's ``wave`` for WAV audio, then an error.
 Every exception that ``probe``, ``read_video`` or ``read_audio`` raises
-carries the reader's name (:func:`is_read_failure`), so that a tool can skip
-a file it could not read without skipping a failure of the stages after it.
+carries the reader's name (:func:`is_read_failure`), so that a tool or the
+raw-video dataset can skip a file it could not read without skipping a
+failure of the stages after it (:func:`host_stage_failed`).
 """
 
 from __future__ import annotations
@@ -75,6 +76,19 @@ def is_read_failure(exc: BaseException) -> bool:
     """Whether ``exc`` came out of ``probe``, ``read_video`` or
     ``read_audio``: the file could not be read."""
     return hasattr(exc, READ_FAILURE)
+
+
+class HostStageError(Exception):
+    """An input file that a host stage could not use: no audio stream, no
+    face track. A caller records the file and goes on."""
+
+
+def host_stage_failed(exc: BaseException) -> bool:
+    """Whether ``exc`` says that one input file was unusable (ingest could
+    not read it, or a :class:`HostStageError`), and not that the program
+    failed: a kernel wrapper's ``RuntimeError`` or ``ValueError``, a CUDA
+    error or a shape fault is none of these."""
+    return isinstance(exc, HostStageError) or is_read_failure(exc)
 
 
 def get_native_lib():
@@ -164,7 +178,11 @@ def read_video(
         info = probe(path)
         w, h = (out_size if out_size else (info.width, info.height))
         if w > 0 and h > 0:
-            buf = np.empty((cap_frames, h, w, 3), np.uint8)
+            # Zeroed, not empty: the native RGB conversion (swscale's
+            # unscaled path) leaves the last ``w % 8`` columns of every
+            # frame unwritten, and an empty buffer would hand them out as
+            # whatever the heap held before (different in every process).
+            buf = np.zeros((cap_frames, h, w, 3), np.uint8)
             n = lib.ingest_read_video(
                 str(path).encode(), float(target_fps), cap_frames, w, h,
                 buf.reshape(-1),

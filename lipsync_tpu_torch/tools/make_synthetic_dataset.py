@@ -755,17 +755,15 @@ def render_multiface_clip(faces, seconds: float, fps: float, sr: int, rng,
     return frames, geo
 
 
-def write_multiface_scene(out_dir: Path, i: int, scene: str, n_faces: int,
-                          seconds: float, fps: float, sr: int, rng,
-                          articulation_gain: float = 1.0) -> None:
-    """One scene clip + ground-truth sidecar JSON (same stem)."""
-    import json
-
+def multiface_scene(scene: str, n_faces: int, seconds: float, fps: float,
+                    sr: int, rng, articulation_gain: float = 1.0):
+    """One scene in memory: ``(frames, pcm, truth, geo)``, where ``truth``
+    is the ground-truth sidecar (roles, speaking spans, mean face centers)
+    and ``geo`` the per-face render geometry (``centers`` per frame,
+    ``scale``)."""
     faces, pcm = build_multiface_scene(scene, n_faces, seconds, sr, rng)
     frames, geo = render_multiface_clip(
         faces, seconds, fps, sr, rng, articulation_gain=articulation_gain)
-    stem = f"{scene}_{i:04d}"
-    write_video(out_dir / f"{stem}.avi", frames, fps, pcm, sr)
     truth = {
         "scene": scene,
         "n_faces": len(faces),
@@ -785,6 +783,20 @@ def write_multiface_scene(out_dir: Path, i: int, scene: str, n_faces: int,
             for s, (f, g) in enumerate(zip(faces, geo))
         ],
     }
+    return frames, pcm, truth, geo
+
+
+def write_multiface_scene(out_dir: Path, i: int, scene: str, n_faces: int,
+                          seconds: float, fps: float, sr: int, rng,
+                          articulation_gain: float = 1.0) -> None:
+    """One scene clip + ground-truth sidecar JSON (same stem)."""
+    import json
+
+    frames, pcm, truth, _ = multiface_scene(
+        scene, n_faces, seconds, fps, sr, rng,
+        articulation_gain=articulation_gain)
+    stem = f"{scene}_{i:04d}"
+    write_video(out_dir / f"{stem}.avi", frames, fps, pcm, sr)
     (out_dir / f"{stem}.json").write_text(json.dumps(truth, indent=1))
 
 

@@ -10,7 +10,9 @@ dataset, augmentation and collate modules in channels-last layouts):
 * ``LipSyncDataset``: raw-video mode (native ingest, tracker, crops and
   log-mel on ``device``: K1 runs there on a CUDA device) and preprocessed
   mode (``manifest.jsonl`` + npy files, a zarr group or a kvlite file).
-  Failed samples return None and are skipped end to end.
+  A sample that cannot be used returns None and is skipped end to end:
+  in raw mode only a file that ingest could not read or that has no audio
+  (a kernel failure propagates and ends the run).
 * ``Augmentations``: shape-preserving speed warp, h-flip, rotation,
   brightness/contrast, Gaussian noise on the host. The rotation is
   scipy's (the JAX package takes cv2 where it imports, scipy elsewhere).
@@ -326,11 +328,22 @@ class LipSyncDataset:
     def get_item(
         self, idx: int, train_mode_override: Optional[bool] = None
     ) -> Optional[Tuple[np.ndarray, np.ndarray, np.float32]]:
+        """One window, or None for a sample that cannot be used. In
+        preprocessed mode (no kernel runs) any failure skips the sample. In
+        raw-video mode only a file that a host stage could not use is
+        skipped (``ingest.host_stage_failed``: ingest could not read it, or
+        it has no audio); the crops and the log-mel (K1) run on the device,
+        and their failures propagate."""
         try:
             if self.use_preprocessed:
                 return self._load_preprocessed(idx, train_mode_override)
             return self._load_raw(idx)
         except Exception as e:
+            if not self.use_preprocessed:
+                from lipsync_tpu_torch.preprocessing import ingest
+
+                if not ingest.host_stage_failed(e):
+                    raise
             if idx not in self._failed:
                 logger.warning("Sample %d failed: %s", idx, e)
             self._failed[idx] = str(e)
@@ -339,7 +352,8 @@ class LipSyncDataset:
     __getitem__ = get_item
 
     def _load_raw(self, idx: int):
-        from lipsync_tpu_torch.preprocessing.audio import preprocess_audio
+        from lipsync_tpu_torch.preprocessing import ingest
+        from lipsync_tpu_torch.preprocessing.audio import preprocess_audio_pcm
         from lipsync_tpu_torch.preprocessing.video import preprocess_video
 
         path, label = self.samples[idx]
@@ -350,8 +364,14 @@ class LipSyncDataset:
             backend=self.backend,
             device=self.device,
         )
-        audio = preprocess_audio(path, target_frames=self.audio_frames,
-                                 device=self.device)
+        # preprocess_audio's read and its empty-signal check, with no audio
+        # marked as the host stage's (its ValueError is the type a kernel
+        # wrapper raises for a wrong device).
+        pcm = ingest.read_audio(path, sr=16000)
+        if pcm.size == 0:
+            raise ingest.HostStageError(f"Empty audio signal for {path}")
+        audio = preprocess_audio_pcm(pcm, target_frames=self.audio_frames,
+                                     device=self.device)
         return visual, audio, np.float32(label)
 
     def _detect_storage_format(self) -> str:

@@ -7,6 +7,10 @@ moving, resizing mouth box over shifted noise, and a 220 Hz tone with a
 takes them, for measurements that feed the model directly.
 :func:`write_corpus` writes requests as a preprocessed training corpus, in
 any of the three store formats that ``training/data.py`` reads.
+:func:`synthetic_frames` (a light face oval with an oscillating mouth) and
+:func:`speechish_pcm` (a voiced harmonic stack under a 2.5 Hz envelope)
+are the talking-face inputs of the shared-encoding measurement, the same
+generators as the JAX package's test fixtures.
 """
 
 from __future__ import annotations
@@ -29,6 +33,51 @@ SR = 16000
 FPS = 15.0
 
 Request = Tuple[np.ndarray, List[List[int]], np.ndarray]
+
+
+def synthetic_frames(
+    n: int = 45, h: int = 120, w: int = 160, face: bool = True, seed: int = 0
+) -> np.ndarray:
+    """(N, H, W, 3) uint8 RGB frames with a light "face" oval + dark
+    oscillating "mouth" region so detector heuristics have something real."""
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(0, 40, size=(n, h, w, 3), dtype=np.uint8)
+    if not face:
+        return frames
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = h // 2, w // 2
+    face_mask = (((yy - cy) / (h * 0.3)) ** 2
+                 + ((xx - cx) / (w * 0.22)) ** 2) < 1
+    for i in range(n):
+        frames[i][face_mask] = (205, 170, 150)
+        for ex in (cx - w // 10, cx + w // 10):
+            eye = (((yy - (cy - h // 8)) ** 2 + (xx - ex) ** 2)
+                   < (h * 0.03) ** 2)
+            frames[i][eye] = (40, 30, 30)
+        # Mouth opens/closes with a 0.4 s period at 15 fps.
+        openness = 0.5 + 0.5 * np.sin(2 * np.pi * i / 6.0)
+        mh = max(2, int(h * 0.04 * (0.3 + openness)))
+        mouth = (
+            (np.abs(yy - (cy + h // 6)) < mh)
+            & (np.abs(xx - cx) < w * 0.08)
+        )
+        frames[i][mouth] = (90, 30, 30)
+    return frames
+
+
+def speechish_pcm(seconds: float = 3.0, sr: int = 16000, seed: int = 0):
+    """Mono float32 PCM: five harmonics of a 140 Hz +- 30 Hz voice under a
+    half-wave 2.5 Hz syllable envelope, over 1e-3 white noise."""
+    rng = np.random.RandomState(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = 140 + 30 * np.sin(2 * np.pi * 0.7 * t)
+    y = sum(
+        (0.5 / k) * np.sin(2 * np.pi * k * np.cumsum(f0) / sr)
+        for k in range(1, 6)
+    )
+    envelope = np.clip(np.sin(2 * np.pi * 2.5 * t), 0, 1) ** 0.5
+    return (y * envelope * 0.3 + rng.randn(n) * 1e-3).astype(np.float32)
 
 
 def pcm(rng: np.random.Generator, n: int) -> np.ndarray:

@@ -157,14 +157,6 @@ def test_the_table_is_only_renames_and_the_recorded_exceptions():
 SCRIPTS = ROOT / "scripts"
 TOOLS = PORT_PKG / "tools"
 SCRIPTS_LATER = {
-    # the remaining evaluation harnesses
-    "eval_robustness_grid", "eval_unseen_fakes", "eval_multiface",
-    "eval_cross_tier", "eval_shared_encoding", "eval_shared_encoding_flips",
-    "eval_crop_agreement",
-    # the diagnostics
-    "diagnose_videos", "diagnose_sync_signal", "debug_clips",
-    "inspect_preprocessed_window", "measure_articulation_bands",
-    "check_epoch", "checking_threshold", "probe_link_engine",
     # the pinned fine-tune launcher
     "run_finetune_strict_venv",
     # the profilers
