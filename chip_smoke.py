@@ -130,9 +130,10 @@ each printed as one JSON line:
    one, each checked against its one-device run; TF32 on vs off as a
    reading.
 11. the modules that complete the port (``completion``): the lip
-   localizer's trainer (``tools/train_lip_localizer.py``) on 4,096 training
-   and 512 validation faces (seeds 0 and 10,000; the JAX script's 40,000
-   and 4,000 steps cut to fit the run), one Adam step on the card against
+   localizer's trainer (``tools/train_lip_localizer.py``) on 1,024 training
+   and 256 validation faces (seeds 0 and 10,000; the JAX script's 40,000
+   and 4,000 steps cut to fit the run, and cut from 4,096 and 512 when
+   phase 14 came), one Adam step on the card against
    the same step on the CPU from ``init_params(RandomState(1))`` on a batch
    of 256 (loss within 1e-5 relative, each gradient within
    ``PARITY_GRAD_TOL`` of its tensor's largest), 300 steps at batch 256
@@ -207,7 +208,36 @@ each printed as one JSON line:
    Every tool's seconds, windows/s of the engine-bound ones, and the
    probe's link MB/s and windows/s.
 
-Phases 5-13 record the shape and dtype of every input that their main
+14. the rest of the scripts tier (``scripts``): ``smoke_interference.sh``
+   at tiny sizes (4 / 2 clips per class, 1 epoch, 1 scene per kind, 2 per
+   unseen construction; inside it ``train_interference_r4.sh`` at 2 / 2
+   clips and 1 epoch), which chains the generator, precompute, training
+   with the device cache, finetune, the merge, ``fit_calibrator``,
+   ``eval_multiface``, ``eval_unseen_fakes`` and the in-line replay as
+   child processes; ``run_finetune_jenkins.sh`` (``check_setup``,
+   ``run_finetune.sh`` raw-video from the calibrated weights on clips of
+   its own, ``validate_pipeline`` on them); ``run_finetune_strict_venv`` without a ``./venv`` (exit 1
+   and its message); then in this process ``profile_forward --batch 128
+   --iters 5 --artifact-detail`` (every stage ``0 < mfu <= 1`` against
+   the bf16 peak, K2 once per artifact, high-frequency and full call),
+   ``profile_host --seconds 3 --repeats 3`` (K1 once per repeat),
+   ``bench_int8 --batch 128`` (|dprob| <= 5e-3, K3 = K4 = 24 per int8
+   forward), ``bench_fold --batch 128`` (|dprob| <= 1e-3, K2 in the
+   unfolded arm only), ``diagnose_int8 --batch 16 --iters 3`` (K3's
+   accumulators equal to its twin's at every geometry),
+   ``bench_train_scaling --batches 32,1024,128`` (1024 an out-of-memory
+   row, 128 after it), ``bench_predictor``, ``bench_serving`` with the
+   stub and with the model (8 requests each, no error) and
+   ``bench_coalesce_r5`` (4 cells). The card's machine has no FFmpeg and
+   no cascade files: every process of the phase, the children through a
+   ``sitecustomize`` first on their ``PYTHONPATH``, writes and reads clips
+   as ``.npz`` payloads at their paths and detects the centre box
+   (:func:`file_clips`, :class:`CenterBoxes`); each child appends its
+   launches and kernel inputs to a log that the phase reads. ``bench_haar``
+   (host only, cascades) is held on the CPU only. Seconds per tool and
+   each tool's report.
+
+Phases 5-14 record the shape and dtype of every input that their main
 runs give each kernel's wrapper (for K3 also the weight shape, stride,
 padding, bias and output dtype; for K4 the memory layout); each must be
 one that phase 3, 4 or 4b held against the twin
@@ -224,6 +254,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import re
 import shutil
 import statistics
@@ -245,21 +276,13 @@ VAL_CLIPS = max(1, int(CORPUS_CLIPS * 0.2))
 # within this share of its tensor's largest.
 PARITY_GRAD_TOL = 1e-3
 
-# Published peaks (dense, no sparsity) by card: (bytes/s, fp32 SIMT FLOP/s,
-# TF32 tensor-core FLOP/s, int8 tensor-core OP/s). K2's conv1 runs on the
-# tensor cores, so its bound counts operations at the TF32 rate (H100 SXM:
-# 495 TFLOP/s; the other cards: half their dense bf16 rate). K1 stays on
-# fp32 SIMT FMA, the only type that holds its dB at quiet bands, so its
-# bound keeps the SIMT rate; it counts the operations that the function
-# needs (an rFFT, the mel bands' supports), not those of the kernel's direct
-# DFT. K3 runs int8 x int8 -> int32 on the tensor cores (H100 SXM: 1,979
-# TOP/s; the other cards: twice their dense bf16 rate).
-PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12, 378e12, 1513e12),
-    "H100 NVL": (3.9e12, 60e12, 417.5e12, 1670e12),
-    "H200": (4.8e12, 67e12, 494.5e12, 1979e12),
-    "H100": (3.35e12, 67e12, 495e12, 1979e12),  # SXM
-}
+# Published peaks by card: ``utils/device.py::card_peaks`` (dense, no
+# sparsity). K2's conv1 runs on the tensor cores, so its bound counts
+# operations at the TF32 rate. K1 stays on fp32 SIMT FMA, the only type
+# that holds its dB at quiet bands, so its bound keeps the SIMT rate; it
+# counts the operations that the function needs (an rFFT, the mel bands'
+# supports), not those of the kernel's direct DFT. K3 runs int8 x int8 ->
+# int32 on the tensor cores.
 SIMT, TENSOR, INT8 = "fp32 SIMT", "TF32 tensor cores", "int8 tensor cores"
 # K2 inputs of the served paths beyond phase 4's batches: the server's
 # warmup (a two-window track), concurrent requests coalesced into buckets
@@ -273,15 +296,24 @@ K2_EXTRA_BATCHES = (2, 4, 8, 32, 64)
 K1_EXTRA_SAMPLES = (1 << 17,)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it was printed
+    (``t_s``, seconds since the script started)."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
 def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    raise ValueError(f"no published peaks for {name!r}; add them to PEAKS")
+    """``(key, (bytes/s, fp32 SIMT, TF32, int8))`` of the card called
+    ``name``, from the port's table."""
+    from lipsync_tpu_torch.utils.device import card_peaks
+
+    key, p = card_peaks(name)
+    return key, (p.bytes_per_s, p.fp32, p.tf32, p.int8)
 
 
 def nvidia_smi() -> str:
@@ -1564,6 +1596,13 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
     cases = [(i, b, (b, *g[0][1:]), *g[1:]) for b in (1, 8, 16, 128)
              for i, g in enumerate(geoms)]
     cases += [(f"odd{i}", 0, *g) for i, g in enumerate(odd)]
+    # Phase 14's diagnose_int8 convolves its own list of encoder
+    # geometries (CONV_SHAPES, one of them not the model's) at B = 16.
+    from lipsync_tpu_torch.tools.diagnose_int8 import CONV_SHAPES
+
+    cases += [(f"diag_{n}", "diag", (16, *x), (co, *ks, ci), st,
+               tuple(d // 2 for d in ks))
+              for n, x, ks, ci, co, st in CONV_SHAPES]
     dtypes = (torch.float32, torch.bfloat16)
     rows = {}
     for name, b, x_shape, w_shape, stride, padding in cases:
@@ -1575,6 +1614,7 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
         want = k3.int8_conv_plain(x, w, stride, padding)
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
+        checked["int8_conv"].add(k3_int32_key(x, w, stride, padding))
         fused_equal = {}
         for dt in dtypes:
             fused = k3.int8_conv_dequant(x, w, scale, bias, dt, stride,
@@ -1625,7 +1665,7 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
         # profiler (:func:`device_ms`). A share or a ratio compares only
         # times of one timer.
         int32 = lambda: k3.int8_conv_int32(x, w, stride, padding)  # noqa
-        timed = b != 8
+        timed = b not in (8, "diag")  # held, not timed
         kms = time_ms(int32, iters=10) if timed else None
         dms = device_ms(int32, K3_KERNELS) if timed else None
         row = {"conv": name, "x": list(x_shape), "w": list(w_shape),
@@ -1779,7 +1819,7 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
             del got, want
         del xf, wf
     torch.cuda.empty_cache()
-    for b in (1, 8, 16, 128, 0):
+    for b in (1, 8, 16, 128, 0, "diag"):
         emit({"phase": "k3_int8_conv", "batch": b or "odd",
               "rows": [r for (_, bb), r in rows.items() if bb == b]})
     emit({"phase": "k3_int8_widths", "convs": c1})
@@ -2592,8 +2632,9 @@ def data_parallel_phase(dev, cfg, weights, requests, track_inputs,
 
 
 # Phase 11: the lip localizer trainer's reduced run (the JAX script's is
-# 40,000 faces and 4,000 steps) and the corpus it writes per format.
-LL_TRAIN, LL_VAL, LL_STEPS, LL_BATCH = 4096, 512, 300, 256
+# 40,000 faces and 4,000 steps; 4,096 and 512 faces until phase 14 needed
+# the host's rendering time) and the corpus it writes per format.
+LL_TRAIN, LL_VAL, LL_STEPS, LL_BATCH = 1024, 256, 300, 256
 COMPLETION_CLIPS = 8
 
 
@@ -3868,6 +3909,509 @@ def evaluation_phase(dev, cfg, smi, weights, record) -> dict:
     return launches
 
 
+# Phase 14: the rest of the scripts tier (``lipsync_tpu_torch/tools``): the
+# launchers, which start the port's tools and trainers as child processes,
+# the profilers and the benchmarks. The card's machine has no FFmpeg and no
+# OpenCV cascade files (``INGEST``), so every Python process of the phase,
+# children included, runs with the host stand-in of :func:`file_clips`:
+# clips are written and read as ``.npz`` payloads at their ``.avi`` paths,
+# and the face detector is :class:`CenterBoxes`. Everything from the frames
+# onward is the port's own code on the card.
+SCRIPTS_SMOKE_ENV = {"NPC_TRAIN": "4", "NPC_CALIB": "2", "EPOCHS": "1",
+                     "MF_PER_KIND": "1", "UNSEEN_NPC": "2",
+                     "INTF_NPC": "2", "INTF_NPC_CAL": "2", "INTF_EPOCHS": "1"}
+SCRIPTS_FORWARD = ("--batch", "128", "--iters", "5", "--artifact-detail")
+SCRIPTS_HOST = ("--seconds", "3", "--repeats", "3")
+SCRIPTS_AB = ("--batch", "128", "--iters", "5")
+SCRIPTS_DIAG = ("--batch", "16", "--iters", "3")
+# 1024 cannot fit in 80 GB (batch 32 trains in 9.65 GB); 128 comes after it,
+# so the sweep must go on past the out-of-memory row.
+SCRIPTS_SCALING = ("--batches", "32,1024,128", "--iters", "3")
+SCRIPTS_CLIPS = ("--n-clips", "2", "--clip-seconds", "3")
+SCRIPTS_REQUESTS = ("--requests", "8", "--concurrency", "2", "--n-clips",
+                    "2", "--clip-seconds", "2")
+SCRIPTS_COALESCE = ("--requests", "16", "--concurrencies", "1,4")
+STAND_IN_ENV = "CHIP_SMOKE_STAND_IN"
+STAND_IN_LOG_ENV = "CHIP_SMOKE_STAND_IN_LOG"
+
+# Put in a directory first on PYTHONPATH: every Python process that the
+# launchers start (and those that they start) installs the stand-in. A
+# sitecustomize that this one shadows runs first.
+SITECUSTOMIZE = '''\
+import importlib.machinery
+import importlib.util
+import os
+import sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize",
+    [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _shadowed = importlib.util.module_from_spec(_spec)
+    _spec.loader.exec_module(_shadowed)
+if os.environ.get("CHIP_SMOKE_STAND_IN"):
+    sys.path.insert(0, os.environ["CHIP_SMOKE_STAND_IN"])
+    import chip_smoke
+    chip_smoke.child_stand_in(os.environ["CHIP_SMOKE_STAND_IN_LOG"])
+'''
+
+
+class CenterBoxes:
+    """The phase's face detector: the centre 96-pixel box of every frame
+    (``center_crop_box``), in place of the cascade ladder whose data files
+    the card's machine lacks. Stateless, so threads can share it."""
+
+    name = "center_box_stand_in"
+
+    def reset(self) -> None:
+        pass
+
+    def detect(self, frame):
+        from lipsync_tpu_torch.preprocessing.face_detection import (
+            Detection,
+            center_crop_box,
+        )
+
+        return [Detection(bbox=center_crop_box(*frame.shape[:2], 96),
+                          detector=self.name)]
+
+
+class FileClips:
+    """``mux.write_video`` and ``ingest.probe`` / ``read_video`` /
+    ``read_audio`` over ``.npz`` payloads (frames, PCM, rates) written at
+    the clip's own path; a file that holds no payload raises as ingest
+    does for a file it cannot read."""
+
+    @staticmethod
+    def write_video(path, frames, fps=15.0, pcm=None, sample_rate=16000,
+                    vcodec="mpeg4", vcodec_opts=None):
+        import numpy as np
+
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "wb") as f:
+            np.savez(f, frames=np.asarray(frames, np.uint8),
+                     pcm=np.zeros(0, np.float32) if pcm is None
+                     else np.asarray(pcm, np.float32),
+                     fps=float(fps), sr=int(sample_rate))
+        return path
+
+    @staticmethod
+    def _load(path):
+        import numpy as np
+
+        from lipsync_tpu_torch.preprocessing import ingest
+
+        if not Path(path).is_file():
+            raise FileNotFoundError(str(path))
+        try:
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+        except Exception as e:
+            raise ingest.HostStageError(f"not a clip payload: {path}") from e
+
+    def probe(self, path):
+        from lipsync_tpu_torch.preprocessing import ingest
+
+        z = self._load(path)
+        n, h, w = z["frames"].shape[:3]
+        fps = float(z["fps"])
+        return ingest.MediaInfo(width=w, height=h, fps=fps,
+                                duration_sec=n / fps, nb_frames=n,
+                                has_audio=len(z["pcm"]) > 0,
+                                sample_rate=int(z["sr"]))
+
+    def read_video(self, path, target_fps=15.0, max_total_frames=None,
+                   out_size=None):
+        z = self._load(path)
+        check(abs(float(z["fps"]) - target_fps) < 1e-6 and out_size is None,
+              "the stand-in's clips are stored at the target rate and size")
+        return z["frames"][:max_total_frames].copy()
+
+    def read_audio(self, path, sr=16000):
+        z = self._load(path)
+        check(int(z["sr"]) == sr, "the stand-in's clips hold 16 kHz PCM")
+        return z["pcm"].copy()
+
+
+@contextlib.contextmanager
+def file_clips():
+    """While open, the port's muxer, ingest readers and default detector
+    are :class:`FileClips` and :class:`CenterBoxes`; ``check_setup``'s
+    ingest, muxer and cascade lines name the stand-in."""
+    from lipsync_tpu_torch.preprocessing import face_detection as fd
+    from lipsync_tpu_torch.preprocessing import haar, ingest, mux
+    from lipsync_tpu_torch.tools import make_synthetic_dataset as gen
+
+    clips = FileClips()
+
+    class StandInCascade:
+        def __init__(self, path):
+            self.data = type("Data", (), {"stage_thresholds": []})()
+
+    saved = [(mux, "write_video"), (ingest, "probe"),
+             (ingest, "read_video"), (ingest, "read_audio"),
+             (ingest, "get_native_lib"), (mux, "_get_lib"),
+             (haar, "find_cascade_file"), (haar, "HaarCascade"),
+             (fd, "_default_backend"), (gen, "write_video")]
+    saved = [(m, a, getattr(m, a)) for m, a in saved]
+    mux.write_video = gen.write_video = clips.write_video
+    ingest.probe = clips.probe
+    ingest.read_video = clips.read_video
+    ingest.read_audio = clips.read_audio
+    ingest.get_native_lib = lambda: "npz file-clip stand-in"
+    mux._get_lib = lambda: "npz file-clip stand-in"
+    haar.find_cascade_file = lambda name: Path(f"{CenterBoxes.name}.xml")
+    haar.HaarCascade = StandInCascade
+    fd._default_backend = CenterBoxes()
+    try:
+        yield clips
+    finally:
+        for m, a, v in saved:
+            setattr(m, a, v)
+
+
+def _as_key(v):
+    return tuple(_as_key(x) for x in v) if isinstance(v, list) else v
+
+
+_CHILD_CONTEXTS = []
+
+
+def child_stand_in(log: str) -> None:
+    """A child process of phase 14: the stand-in for its whole life, its
+    kernel inputs recorded, and at exit one line appended to ``log`` with
+    its command, the four launch counts and those inputs."""
+    import atexit
+
+    seen = {}
+    # Kept open for the process's life: a context manager that is
+    # collected closes, and would put the real functions back.
+    _CHILD_CONTEXTS.extend([file_clips(), kernel_inputs(seen)])
+    for ctx in _CHILD_CONTEXTS:
+        ctx.__enter__()
+
+    started = time.perf_counter()
+
+    def dump():
+        from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+        from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+        from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+        from lipsync_tpu_torch.ops.kernels import mel as k1
+
+        with open(log, "a") as f:
+            f.write(json.dumps({
+                "argv": sys.argv,
+                "seconds": time.perf_counter() - started,
+                "launches": [k1.launches, k2.launches, k3.launches,
+                             k4.launches],
+                "seen": {k: sorted(v) for k, v in seen.items()}}) + "\n")
+
+    atexit.register(dump)
+
+
+def scripts_phase(dev, cfg, smi, weights, record) -> dict:
+    """The scripts tier at ``ModelConfig()`` width, each through the entry
+    point a user calls: ``smoke_interference.sh`` at tiny sizes (it drives
+    ``train_interference_r4.sh``: the generator, precompute, training with
+    the device cache, finetune, the merge, ``fit_calibrator``,
+    ``eval_multiface``, ``eval_unseen_fakes`` and the in-line replay, each a
+    child process); ``run_finetune_jenkins.sh`` (``check_setup``,
+    ``run_finetune.sh`` on the smoke's checkpoint, ``validate_pipeline`` on
+    clips); ``run_finetune_strict_venv`` without a ``./venv``; and in this
+    process ``profile_forward``, ``profile_host``, ``bench_int8``,
+    ``bench_fold``, ``diagnose_int8``, ``bench_train_scaling``,
+    ``bench_predictor``, ``bench_serving`` (stub and model) and
+    ``bench_coalesce_r5``. ``bench_haar`` is host only and needs the
+    cascade files: not run here. Returns the kernels' launches over the
+    in-process runs and, apart, the children's."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.inference.engine import load_engine
+    from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.tools import make_synthetic_dataset as gen
+    from lipsync_tpu_torch.tools import (
+        bench_coalesce_r5,
+        bench_fold,
+        bench_int8,
+        bench_predictor,
+        bench_serving,
+        bench_train_scaling,
+        diagnose_int8,
+        profile_forward,
+        profile_host,
+        run_finetune_strict_venv,
+    )
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_scripts_"))
+    pth = work / "calibrated.pth"
+    torch.save(weights, pth)
+    on_card = ["--device", str(dev)]
+
+    # The children: ``python`` first on PATH is this interpreter, and the
+    # stand-in's sitecustomize first on PYTHONPATH.
+    (work / "bin").mkdir()
+    (work / "site").mkdir()
+    shim = work / "bin" / "python"
+    shim.write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    shim.chmod(0o755)
+    (work / "site" / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    child_env = {
+        **os.environ,
+        "PATH": f"{work / 'bin'}:{os.environ.get('PATH', '')}",
+        "PYTHONPATH": ":".join(filter(None, [
+            str(work / "site"), str(ROOT), os.environ.get("PYTHONPATH", "")])),
+        STAND_IN_ENV: str(ROOT)}
+    launcher_lines = []
+
+    def run_launcher(name, env, timeout):
+        """Runs ``lipsync_tpu_torch/tools/<name>.sh`` from the checkout's
+        root; its seconds and its children's records (they append to a log
+        of their own)."""
+        log = work / f"{name}.children.jsonl"
+        t_start = time.perf_counter()
+        proc = subprocess.run(
+            ["bash", str(ROOT / "lipsync_tpu_torch" / "tools"
+                         / f"{name}.sh")],
+            cwd=ROOT, env={**child_env, STAND_IN_LOG_ENV: str(log), **env},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=timeout)
+        launcher_lines.extend(
+            f"{name}: {line}" for line in proc.stdout.splitlines()
+            if re.match(r"\[\d\d:\d\d:\d\d\]", line))
+        check(proc.returncode == 0,
+              f"{name}.sh exited {proc.returncode}:\n{proc.stdout[-8000:]}")
+        return {"seconds": time.perf_counter() - t_start,
+                "children": [json.loads(line) for line in
+                             log.read_text().splitlines()]
+                if log.exists() else []}
+
+    forwards = {"eval": 0, "int8": 0, "folded": 0}
+    real_forward = LipSyncModel.forward
+
+    def counted_forward(model, *args, **kwargs):
+        if not model.training:
+            forwards["eval"] += 1
+            forwards["int8"] += model.config.conv_lowering == "int8"
+            forwards["folded"] += bool(model.config.hf_stem_fold)
+        return real_forward(model, *args, **kwargs)
+
+    counters = (k1, k2, k3, k4)
+    per_tool, seconds = {}, {}
+
+    def tool(name, fn):
+        """``fn()`` as one tool run: its launches (K1, K2, K3, K4, eval
+        forwards, int8 forwards, folded forwards) and its synchronised wall
+        time."""
+        before = [c.launches for c in counters] + list(forwards.values())
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t1
+        after = [c.launches for c in counters] + list(forwards.values())
+        per_tool[name] = [a - b for a, b in zip(after, before)]
+        return out
+
+    def quiet(fn):
+        """``fn()`` with its standard output kept, not printed."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        return out, buf.getvalue()
+
+    smoke = work / "smoke"
+    LipSyncModel.forward = counted_forward
+    try:
+        with record(), file_clips():
+            # run_finetune_jenkins.sh on raw clips of its own, the
+            # calibrated weights as its base checkpoint: raw-video finetune
+            # and evaluation. (Run beside the smoke, both took longer than
+            # one after the other: each child's start is CPU-bound.)
+            gen.main(["--output-dir", str(work / "jraw"), "--style",
+                      "phoneme", "--n-per-class", "2", "--seed", "21"])
+            k1.launches = k2.launches = k3.launches = k4.launches = 0
+            launchers = {
+                "smoke_interference": tool(
+                    "smoke_interference", lambda: run_launcher(
+                        "smoke_interference",
+                        {"S": str(smoke), **SCRIPTS_SMOKE_ENV}, 600)),
+                "run_finetune_jenkins": tool(
+                    "run_finetune_jenkins", lambda: run_launcher(
+                        "run_finetune_jenkins", {
+                            "WORKSPACE": str(work / "ws"),
+                            "DATA_DIR": str(work / "jraw"),
+                            "CHECKPOINT": str(pth), "EPOCHS": "1",
+                            "FROZEN_EPOCHS": "1", "BATCH_SIZE": "8",
+                            "EVAL_DATA_DIR": str(work / "jraw")}, 300))}
+            strict_rc, strict_out = tool(
+                "run_finetune_strict_venv",
+                lambda: quiet(lambda: run_finetune_strict_venv.main([])))
+            fwd, _ = tool("profile_forward", lambda: quiet(
+                lambda: profile_forward.main([*SCRIPTS_FORWARD, *on_card])))
+            host, _ = tool("profile_host", lambda: quiet(
+                lambda: profile_host.main([*SCRIPTS_HOST, *on_card],
+                                          backend=CenterBoxes())))
+            int8_ab, _ = tool("bench_int8", lambda: quiet(
+                lambda: bench_int8.main([*SCRIPTS_AB, *on_card])))
+            fold_ab, _ = tool("bench_fold", lambda: quiet(
+                lambda: bench_fold.main([*SCRIPTS_AB, *on_card])))
+            diag, _ = tool("diagnose_int8", lambda: quiet(
+                lambda: diagnose_int8.main([
+                    *SCRIPTS_DIAG, "--out", str(work / "diag.json"),
+                    *on_card])))
+            torch.cuda.empty_cache()
+            scaling, _ = tool("bench_train_scaling", lambda: quiet(
+                lambda: bench_train_scaling.main([*SCRIPTS_SCALING,
+                                                  *on_card])))
+            torch.cuda.empty_cache()
+            predictor, _ = tool("bench_predictor", lambda: quiet(
+                lambda: bench_predictor.main(
+                    ["--model-path", str(pth), *SCRIPTS_CLIPS, *on_card],
+                    detector_backend=CenterBoxes())))
+            serving_stub, _ = tool("bench_serving_stub", lambda: quiet(
+                lambda: bench_serving.main(["--stub-model",
+                                            *SCRIPTS_REQUESTS])))
+            serving_model, _ = tool("bench_serving_model", lambda: quiet(
+                lambda: bench_serving.main(
+                    ["--model-path", str(pth), *SCRIPTS_REQUESTS,
+                     *on_card], detector_backend=CenterBoxes())))
+            engine = load_engine(pth, cfg, device=dev)
+            coalesce, _ = tool("bench_coalesce_r5", lambda: quiet(
+                lambda: bench_coalesce_r5.main(
+                    [*SCRIPTS_COALESCE, "--out", str(work / "coal.json"),
+                     *on_card], engine=engine)))
+        launches = {"log_mel": k1.launches, "hf_stem": k2.launches,
+                    "int8_conv": k3.launches, "int8_quant": k4.launches}
+    finally:
+        LipSyncModel.forward = real_forward
+
+    # The children's kernel inputs join the main path's.
+    kids = [c for r in launchers.values() for c in r["children"]]
+    child_seen = {}
+    for c in kids:
+        for name, keys in c["seen"].items():
+            child_seen.setdefault(name, set()).update(
+                _as_key(k) for k in keys)
+    child_launches = [sum(c["launches"][i] for c in kids) for i in range(4)]
+
+    out_dir = smoke / "out"
+    artifacts = {p.name: sorted(json.loads(p.read_text()))
+                 for p in sorted(out_dir.glob("*.json"))}
+    forgetting = smoke / "intf" / "seen_forgetting.json"
+    eval_metrics = work / "ws" / "eval_out" / "metrics.json"
+    n_int8 = per_tool["bench_int8"][5]
+    readings = {
+        "phase": "scripts", "nvidia_smi": smi,
+        "stand_in": "ingest, muxer and detector: FileClips + CenterBoxes "
+                    "(no FFmpeg or cascade files on the card's machine); the "
+                    "profile_host and bench detectors too",
+        "seconds": seconds,
+        "per_tool_k1_k2_k3_k4_eval_int8_folded": per_tool,
+        "launches": launches,
+        "children": {"processes": len(kids),
+                     "seconds_in_python": sum(c["seconds"] for c in kids),
+                     "launches_k1_k2_k3_k4": child_launches,
+                     "per_command": [[c["argv"][0].rsplit("/", 1)[-1],
+                                      round(c["seconds"], 2), c["launches"]]
+                                     for c in kids]},
+        "launcher_log": launcher_lines,
+        "smoke_artifacts": artifacts,
+        "profile_forward": fwd, "profile_host": host,
+        "bench_int8": int8_ab, "bench_fold": fold_ab,
+        "diagnose_int8": diag, "bench_train_scaling": scaling,
+        "bench_predictor": predictor,
+        "bench_serving_stub": serving_stub,
+        "bench_serving_model": serving_model,
+        "bench_coalesce_r5": {k: v for k, v in coalesce.items()
+                              if k != "model_path"},
+        "bench_haar": "not run: host only, and the card's machine has no "
+                      "OpenCV cascade files (tests/test_torch_tools_bench.py "
+                      "holds it on the CPU)",
+        "strict_venv": {"rc": strict_rc, "output": strict_out},
+        "phase_s": time.perf_counter() - t_phase}
+    emit(readings)
+
+    # Every number is printed above before any is checked.
+    for name in ("multiface_2f_smoke_base.json", "multiface_3f_smoke_base.json",
+                 "unseen_smoke_base.json", "multiface_2f_r4_intf_smoke.json",
+                 "multiface_3f_r4_intf_smoke.json"):
+        check(name in artifacts, f"smoke_interference wrote no {name}")
+    check(forgetting.is_file() and eval_metrics.is_file(),
+          "the launchers' final reports are missing")
+    check(child_launches[0] > 0 and child_launches[1] > 0,
+          f"the launchers' children launched K1/K2 {child_launches}")
+    check(strict_rc == 1 and "venv Python not found" in strict_out,
+          f"run_finetune_strict_venv without ./venv: {strict_rc}")
+    stages = dict(fwd["stages"], full={"ms": fwd["full_forward_ms"],
+                                       "mfu": fwd["full_mfu"]})
+    for name, s in stages.items():
+        check(s["ms"] > 0 and s["mfu"] is not None and 0 < s["mfu"] <= 1.0,
+              f"profile_forward {name}: {s}")
+    iters = int(SCRIPTS_FORWARD[3])
+    check(per_tool["profile_forward"][1] == 3 * (iters + 1),
+          f"profile_forward: K2 {per_tool['profile_forward'][1]} for "
+          f"{iters + 1} calls of the artifact, high_freq and full stages")
+    check(per_tool["profile_host"][0] == int(SCRIPTS_HOST[3]),
+          f"profile_host: K1 {per_tool['profile_host'][0]} for "
+          f"{SCRIPTS_HOST[3]} repeats")
+    check("crop_device" in host["stage_ms"], f"profile_host: {host}")
+    check(int8_ab["max_dprob"] <= 5e-3,
+          f"bench_int8 |dprob| {int8_ab['max_dprob']}")
+    check(n_int8 > 0 and per_tool["bench_int8"][2] == 24 * n_int8
+          and per_tool["bench_int8"][3] == 24 * n_int8,
+          f"bench_int8: K3/K4 {per_tool['bench_int8'][2:4]} for {n_int8} "
+          "int8 forwards")
+    check(fold_ab["max_dprob"] <= 1e-3,
+          f"bench_fold |dprob| {fold_ab['max_dprob']}")
+    n_eval, n_fold = per_tool["bench_fold"][4], per_tool["bench_fold"][6]
+    check(n_fold > 0 and per_tool["bench_fold"][1] == n_eval - n_fold,
+          f"bench_fold: K2 {per_tool['bench_fold'][1]} for "
+          f"{n_eval - n_fold} unfolded and {n_fold} folded forwards")
+    check(all(r["int8_acc_equals_twin"] for r in diag["conv"]["rows"])
+          and len(diag["conv"]["rows"]) == len(diagnose_int8.CONV_SHAPES)
+          and len(diag["gemm"]["rows"]) == 3
+          and len(diag["quant"]["rows"]) == 4,
+          "diagnose_int8: K3's accumulators differ from its twin's, or a "
+          "stage is short")
+    rows = scaling["rows"]
+    check([r["batch"] for r in rows] == [32, 1024, 128]
+          and "out of memory" in rows[1].get("error", "").lower()
+          and all("step_ms" in rows[i] for i in (0, 2)),
+          f"bench_train_scaling: {rows}")
+    n_predict = 2 * (1 + int(SCRIPTS_CLIPS[1]))
+    check(per_tool["bench_predictor"][0] >= n_predict
+          and per_tool["bench_predictor"][1] >= n_predict
+          and len(predictor["verdicts"]["pipelined"]) == int(SCRIPTS_CLIPS[1]),
+          f"bench_predictor: {per_tool['bench_predictor']}")
+    for name, res in (("stub", serving_stub), ("model", serving_model)):
+        check(res["requests"] == 8 and res["errors"] == 0,
+              f"bench_serving {name}: {res}")
+    # K1 once per request (and the warm one); K2 once per eval forward,
+    # which the coalescing engine shares between concurrent requests.
+    served = per_tool["bench_serving_model"]
+    check(served[0] >= 9 and 0 < served[1] == served[4]
+          and per_tool["bench_serving_stub"][:4] == [0, 0, 0, 0],
+          f"bench_serving launches {served}, "
+          f"stub {per_tool['bench_serving_stub']}")
+    check(len(coalesce["cells"]) == 4
+          and all(c["requests"] == 16 for c in coalesce["cells"]),
+          f"bench_coalesce_r5: {coalesce['cells']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {**launches, "children": dict(zip(
+        ("log_mel", "hf_stem", "int8_conv", "int8_quant"), child_launches)),
+        "child_seen": child_seen}
+
+
 def world_of_one(work: Path) -> None:
     """The child of phase 10 (c), started by ``torch.distributed.run`` with
     one process: join its NCCL group, then one host-fed and one
@@ -4573,6 +5117,14 @@ def main() -> None:
         dev, cfg, smi, weight_sets["bn_calibrated"],
         lambda: kernel_inputs(seen))
 
+    # ── 14. the scripts tier: launchers, profilers, benchmarks ─────────
+    torch.cuda.empty_cache()
+    scripts_launches = scripts_phase(dev, cfg, smi,
+                                     weight_sets["bn_calibrated"],
+                                     lambda: kernel_inputs(seen))
+    for name, keys in scripts_launches.pop("child_seen").items():
+        seen.setdefault(name, set()).update(keys)
+
     # Every input shape that the main runs gave a kernel was checked above.
     unchecked = {name: sorted(shapes - checked[name])
                  for name, shapes in seen.items()}
@@ -4582,7 +5134,7 @@ def main() -> None:
     check(not any(unchecked.values()),
           f"main-path kernel inputs not held against the twin: {unchecked}")
 
-    # ── 14. kernels ───────────────────────────────────────────────────
+    # ── 15. kernels ───────────────────────────────────────────────────
     r1_n = 1 << (len(requests["R1"][2]) - 1).bit_length()
     m = k1_rows[max(r1_n, 1 << 14)]
     k2m = k2_rows[16]  # R2's bucket, fp32 as in the earlier slice
@@ -4619,6 +5171,9 @@ def main() -> None:
          "launches_completion": completion_launches["log_mel"],
          "launches_tools": tools_launches["log_mel"],
          "launches_evaluation": evaluation_launches["log_mel"],
+         "launches_scripts": scripts_launches["log_mel"],
+         "launches_scripts_children":
+             scripts_launches["children"]["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
@@ -4637,6 +5192,9 @@ def main() -> None:
          "launches_completion": completion_launches["hf_stem"],
          "launches_tools": tools_launches["hf_stem"],
          "launches_evaluation": evaluation_launches["hf_stem"],
+         "launches_scripts": scripts_launches["hf_stem"],
+         "launches_scripts_children":
+             scripts_launches["children"]["hf_stem"],
          # under the fold (one cuDNN conv in K2's place): checked to be 0
          "launches_fold": option_launches["hf_stem_fold"],
          "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
@@ -4655,6 +5213,9 @@ def main() -> None:
          "launches_completion": completion_launches["int8_conv"],
          "launches_tools": tools_launches["int8_conv"],
          "launches_evaluation": evaluation_launches["int8_conv"],
+         "launches_scripts": scripts_launches["int8_conv"],
+         "launches_scripts_children":
+             scripts_launches["children"]["int8_conv"],
          "shape": {k: k3m[k] for k in ("x", "w", "stride", "padding",
                                        "main_loop")},
          # ms, plain_ms and library_ms per call from CUDA events on the
@@ -4686,6 +5247,9 @@ def main() -> None:
          "launches_completion": completion_launches["int8_quant"],
          "launches_tools": tools_launches["int8_quant"],
          "launches_evaluation": evaluation_launches["int8_quant"],
+         "launches_scripts": scripts_launches["int8_quant"],
+         "launches_scripts_children":
+             scripts_launches["children"]["int8_quant"],
          # the single launch on K3's input above, fp32 channels-last; the
          # old absmax + quantize pair in turns with it under "pair_ms"
          "shape": [k3m["x"][0], k3m["x"][-1], *k3m["x"][1:-1]],

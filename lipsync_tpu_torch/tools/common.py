@@ -63,3 +63,99 @@ class StubEngine:
     def score_logits(self, visual, audio):
         p = self.score_probs(visual, audio)
         return np.log(p / (1 - p))
+
+
+def sync(device) -> None:
+    """Wait for ``device``'s queued work (nothing on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def median_call_s(fn, device, iters: int = 10) -> float:
+    """Median seconds per call of ``fn()`` after one warm call: each call
+    between two CUDA events on the card (the device's time from the first
+    launch to the last, host gaps included), on the host clock on the
+    CPU."""
+    import time
+
+    import torch
+
+    fn()
+    sync(device)
+    ts = []
+    for _ in range(iters):
+        if torch.device(device).type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def forward_ab(cfg, arms, state_dict, batch: int, iters: int, device,
+               dtype) -> dict:
+    """The A/B of the benchmark tools: ``LipSyncModel`` forwards of one
+    random batch (``np.random.RandomState(0)``: pixels in [0, 1), log-mel in
+    [-80, 0) dB, as the JAX scripts draw them) under each arm's config
+    (``arms``: ``(name, ModelConfig)`` pairs), on ``state_dict``. Each arm
+    is warmed once, then timed ``iters`` times from the call to the logits
+    read back to the host; returns per arm ``p50_s`` and its P(REAL) in
+    float64."""
+    import time
+
+    import torch
+
+    from lipsync_tpu_torch.models import LipSyncModel
+
+    rng = np.random.RandomState(0)
+    v = rng.rand(batch, cfg.video_frames, cfg.crop_size, cfg.crop_size,
+                 3).astype(np.float32)
+    a = (rng.rand(batch, cfg.mel_bins, cfg.audio_frames, 1) * 80
+         - 80).astype(np.float32)
+    vd = torch.from_numpy(v).to(device)
+    ad = torch.from_numpy(a).to(device)
+    out = {}
+    for name, arm_cfg in arms:
+        model = LipSyncModel(arm_cfg, dtype=dtype)
+        model.load_state_dict(state_dict, strict=True)
+        model.to(device).eval()
+
+        def fwd():
+            with torch.inference_mode():
+                return model(vd, ad).float().cpu().numpy()
+
+        fwd()  # warm: kernel builds, allocator, cuDNN plans
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            logits = fwd()
+            times.append(time.perf_counter() - t0)
+        out[name] = {"p50_s": float(np.median(times)),
+                     "prob": 1.0 / (1.0 + np.exp(-logits.astype(np.float64)))}
+        del model
+    return out
+
+
+def model_weights(cfg, model_path=None, variables=None):
+    """The weights of a benchmark tool: ``variables`` as given (a port
+    ``state_dict`` or a JAX-layout tree), else those of ``model_path``
+    (through ``load_engine`` on the CPU), else ``seeded_state_dict(0)``
+    (the JAX scripts draw a random init); as a port ``state_dict``."""
+    from lipsync_tpu_torch.inference.engine import _as_state_dict, load_engine
+    from lipsync_tpu_torch.models import LipSyncModel, seeded_state_dict
+
+    if variables is not None:
+        return _as_state_dict(variables)
+    if model_path is not None:
+        return load_engine(model_path, config=cfg, use_bfloat16=False,
+                           device="cpu").variables
+    return seeded_state_dict(LipSyncModel(cfg), 0)

@@ -8,7 +8,7 @@ silently.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -59,3 +59,45 @@ def disable_tf32() -> None:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         logger.info("TF32 off: cuDNN convolutions and matmuls run in fp32")
+
+
+class CardPeaks(NamedTuple):
+    """A card's published peaks (dense rates, no sparsity, at the card's
+    full power limit): memory bytes/s, fp32 SIMT FLOP/s, and TF32, bf16
+    and int8 tensor-core FLOP/s (OP/s for int8)."""
+
+    bytes_per_s: float
+    fp32: float
+    tf32: float
+    bf16: float
+    int8: float
+
+
+# NVIDIA's data sheets, by the name ``torch.cuda.get_device_name`` gives;
+# the first key that the name contains wins, so "H100" (the SXM part)
+# comes after the PCIe and NVL parts.
+CARD_PEAKS = {
+    "H100 PCIe": CardPeaks(2.0e12, 51e12, 378e12, 756e12, 1513e12),
+    "H100 NVL": CardPeaks(3.9e12, 60e12, 417.5e12, 835e12, 1670e12),
+    "H200": CardPeaks(4.8e12, 67e12, 494.5e12, 989e12, 1979e12),
+    "H100": CardPeaks(3.35e12, 67e12, 495e12, 989e12, 1979e12),
+}
+
+
+def card_peaks(name: str) -> Tuple[str, CardPeaks]:
+    """``(key, peaks)`` of the card called ``name``; raises for a card the
+    table does not hold (a utilization needs a published peak)."""
+    for key, val in CARD_PEAKS.items():
+        if key in name:
+            return key, val
+    raise ValueError(f"no published peaks for {name!r}; add them to "
+                     "utils/device.py::CARD_PEAKS")
+
+
+def device_peaks(device: DeviceLike) -> Optional[CardPeaks]:
+    """The peaks of the card behind ``device``; None on the CPU, which has
+    no published peak here (its utilizations read null)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return card_peaks(torch.cuda.get_device_name(dev))[1]

@@ -151,21 +151,12 @@ def test_the_table_is_only_renames_and_the_recorded_exceptions():
 #
 # Every script under scripts/ that imports the JAX package or JAX, or runs
 # the JAX package with ``python -m``, has a tool of the same name in
-# lipsync_tpu_torch/tools/, or stands here; ROADMAP.md ("A′. The scripts
-# tier") lists the same scripts in the order they are to be ported.
+# lipsync_tpu_torch/tools/; every shell launcher there that runs the JAX
+# package or one of those scripts has a launcher of the same name beside
+# the tools. ROADMAP.md ("A′. The scripts tier") names none as left.
 
 SCRIPTS = ROOT / "scripts"
 TOOLS = PORT_PKG / "tools"
-SCRIPTS_LATER = {
-    # the pinned fine-tune launcher
-    "run_finetune_strict_venv",
-    # the profilers
-    "profile_forward", "profile_host",
-    # the benchmarks, with the benchmark
-    "bench_coalesce_r5", "bench_fold", "bench_haar", "bench_int8",
-    "bench_predictor", "bench_serving", "bench_train_scaling",
-    "diagnose_int8",
-}
 
 
 def _drives_the_jax_package(path: Path) -> bool:
@@ -190,6 +181,25 @@ DRIVING = sorted(p.stem for p in SCRIPTS.glob("*.py")
                  if _drives_the_jax_package(p))
 
 
+def _launches_the_jax_package(path: Path) -> bool:
+    """The launcher runs the JAX package (``lipsync_tpu.`` as a module or
+    an import), or one of the scripts above, or another such launcher."""
+    import re
+
+    text = path.read_text()
+    if re.search(r"\blipsync_tpu\.", text):
+        return True
+    if any(re.search(rf"scripts/{s}\.py\b", text) for s in DRIVING):
+        return True
+    return any(re.search(rf"\b{p.stem}\.sh\b", text)
+               for p in SCRIPTS.glob("*.sh") if p != path
+               and _launches_the_jax_package(p))
+
+
+LAUNCHERS = sorted(p.stem for p in SCRIPTS.glob("*.sh")
+                   if _launches_the_jax_package(p))
+
+
 def test_the_script_walk_finds_the_jax_scripts():
     """36 scripts import JAX or the JAX package; two more run it with
     ``python -m``."""
@@ -201,25 +211,48 @@ def test_the_script_walk_finds_the_jax_scripts():
 
 @pytest.mark.parametrize("script", DRIVING)
 def test_every_jax_script_has_a_tool(script):
-    assert (TOOLS / f"{script}.py").is_file() or script in SCRIPTS_LATER, (
-        f"scripts/{script}.py has no lipsync_tpu_torch/tools/{script}.py "
-        "and is not in SCRIPTS_LATER")
+    assert (TOOLS / f"{script}.py").is_file(), (
+        f"scripts/{script}.py has no lipsync_tpu_torch/tools/{script}.py")
 
 
-@pytest.mark.parametrize("script", sorted(SCRIPTS_LATER))
-def test_every_script_left_is_current(script):
-    """An entry names a script that drives the JAX package and has no
-    tool yet (a ported one must go)."""
-    assert script in DRIVING, script
-    assert not (TOOLS / f"{script}.py").exists(), f"{script} is ported"
+def test_the_launcher_walk_finds_the_jax_launchers():
+    """Six launchers start the JAX trainer; three more chain the JAX
+    scripts or those launchers."""
+    assert LAUNCHERS == sorted([
+        "adapt_unseen_r4", "regen_r4", "run_finetune", "smoke_interference",
+        "train_interference_r4", "train_union_flagship", "datagen_r5",
+        "quick_finetune", "run_finetune_jenkins"])
+
+
+@pytest.mark.parametrize("launcher", LAUNCHERS)
+def test_every_jax_launcher_has_a_port_launcher(launcher):
+    """The port's launcher exists, runs no JAX script or module and no JAX
+    launcher (its comments may name them), and is executable like its JAX
+    counterpart."""
+    import os
+    import re
+
+    port = TOOLS / f"{launcher}.sh"
+    assert port.is_file(), f"scripts/{launcher}.sh has no {port}"
+    text = "\n".join(line for line in port.read_text().splitlines()
+                     if not line.lstrip().startswith("#"))
+    assert not re.search(r"\blipsync_tpu\.", text)
+    assert not re.search(r"\bscripts/\w+\.sh\b", text)
+    ran = set(re.findall(r"scripts/(\w+)\.py\b", text))
+    assert ran <= {"merge_preprocessed_dirs"}, ran
+    assert os.access(port, os.X_OK)
 
 
 def test_scripts_left_are_the_roadmap_list():
+    """ROADMAP.md's A′ names no script or launcher as left to port."""
     import re
 
     text = (ROOT / "ROADMAP.md").read_text()
-    start = text.index("Left, in order",
-                       text.index("### A′. The scripts tier"))
+    start = text.index("### A′. The scripts tier")
     section = text[start:text.index("\n### ", start)]
-    named = set(re.findall(r"`(\w+)(?:\.py)?`", section))
-    assert named & set(DRIVING) == SCRIPTS_LATER
+    assert "none left" in section.splitlines()[0]
+    left = section[section.index("none left"):]
+    if "Left, in order" in left:
+        left = left[left.index("Left, in order"):]
+        named = set(re.findall(r"`(\w+)(?:\.py|\.sh)?`", left))
+        assert not named & (set(DRIVING) | set(LAUNCHERS)), named
