@@ -16,6 +16,15 @@ each printed as one JSON line:
    rFFT chain) and bound times, and on a quiet-band signal against a
    float64 DFT of the same chain (K1 no further than the twin + 2e-4 dB,
    and within the 2.5e-3 dB fp32 floor that the CPU tests pin);
+3b. K1 at every parameter set of ``K1_PARAM_SETS`` (the Pallas kernel's
+   range: 22.05 kHz / 510 / 128 mels, 8 kHz, uncentred, 13 empty bands,
+   an odd n_fft, no floor) at 65536 samples: < 1e-3 dB from its twin on
+   white noise, within 2.5e-3 dB of a float64 chain on a tone over noise,
+   empty bands at 10 log10(1e-10) dB; event and device times beside the
+   twin, ``ops/mel.py`` and the bound, and at the defaults the
+   run-time-sized kernel against the fixed one. Outside K1's range the
+   audio preprocessing launches no K1 and the wrapper raises; an injected
+   K1 failure inside it ends the preprocessing;
 4. K2 (HF stem) against its twin at every main-path batch, (B, 32, 96, 96,
    3) for B = 1 / 16 / 128, the refinement's half windows (4, 16, 96, 96,
    3) and the trainers' validation batches (6 and 3, 32, 96, 96, 3), and at
@@ -58,6 +67,11 @@ each printed as one JSON line:
    logits must be within 1e-3 of the same request with the twins on the
    card, and bf16 probabilities within 4e-3 of fp32. Warm latency is the
    median of 5;
+5b. the engine's ``max_in_flight`` and ``transfer_uint8`` on R2 in fp32
+   (``engine_options_phase``): 1 and 2 groups of 4 in flight give equal
+   logits, within 1e-3 of one group; windows off the uint8 grid uploaded
+   unrounded score as the model on them (1e-5) and otherwise than
+   rounded;
 6. ``Predictor.predict`` from a clip to a verdict, at the same width and on
    the same calibrated weights, through the served bf16 engine and the fp32
    one: clip S (30 frames + 2.0 s, the short path with refinement and the
@@ -294,6 +308,27 @@ K2_EXTRA_BATCHES = (2, 4, 8, 32, 64)
 # K1 inputs beyond phase 3's timed buckets: phase 13's shared-encoding
 # tracks (120 frames, 8 s of PCM in a bucket of 131072 samples).
 K1_EXTRA_SAMPLES = (1 << 17,)
+# K1's parameter sets beyond the defaults, as the JAX package's Pallas
+# kernel takes them (tests/test_torch_mel.py holds the twin against it at
+# each): 22.05 kHz at 128 mels and the widest n_fft whose bins fit its 256
+# lanes, 8 kHz, uncentred frames, a filterbank with 13 empty bands, an odd
+# n_fft and no floor. Phase 3b holds each at this many samples.
+K1_PARAM_SETS = {
+    "defaults": {},
+    "22050_510_128_128": dict(sr=22050, n_fft=510, hop_length=128,
+                              n_mels=128),
+    "8000_256_80_40": dict(sr=8000, n_fft=256, hop_length=80, n_mels=40),
+    "16000_320_160_64_uncentred": dict(sr=16000, n_fft=320, hop_length=160,
+                                       n_mels=64, center=False),
+    "16000_256_160_128_empty_bands": dict(sr=16000, n_fft=256,
+                                          hop_length=160, n_mels=128),
+    "odd_n_fft_401": dict(n_fft=401),
+    "no_floor": dict(top_db=None),
+}
+K1_PARAM_SAMPLES = 65536
+# Outside K1's range the audio preprocessing takes ops/mel.py's chain.
+K1_OUTSIDE = {"win_length_1024": dict(win_length=1024),
+              "n_mels_160": dict(n_mels=160)}
 
 
 _T0 = time.perf_counter()
@@ -341,29 +376,291 @@ def tf32_flags() -> dict:
             "matmul": torch.backends.cuda.matmul.allow_tf32}
 
 
-def mel_float64(y):
-    """The log-mel chain of PCM ``y`` in float64, K1's frames: centred
-    400-sample Hann frames at hop 160, power rFFT, 80 mel bands, dB to the
-    clip's peak floored at -80."""
+def mel_float64(y, sr=16000, n_fft=400, hop_length=160, n_mels=80,
+                center=True, **_):
+    """The log-mel chain of PCM ``y`` in float64, K1's frames: (centred)
+    n_fft-sample Hann frames at the hop, power rFFT, the mel bands, dB to
+    the clip's peak floored at -80 (by default 400 / 160 / 80 at 16 kHz)."""
     import numpy as np
 
     from lipsync_tpu_torch.ops import mel as mel_ops
     from lipsync_tpu_torch.ops.kernels import mel as k1
 
-    yp = np.pad(np.asarray(y, np.float64), (200, 200))
-    frames = np.lib.stride_tricks.sliding_window_view(yp, 400)[::160]
+    pad = n_fft // 2 if center else 0
+    yp = np.pad(np.asarray(y, np.float64), (pad, pad))
+    frames = np.lib.stride_tricks.sliding_window_view(yp, n_fft)[::hop_length]
     power = np.abs(np.fft.rfft(
-        frames[: k1.n_frames_for(len(y))]
-        * mel_ops.hann_window(400).astype(np.float64), axis=-1)) ** 2
+        frames[: k1.n_frames_for(len(y), n_fft, hop_length, center)]
+        * mel_ops.hann_window(n_fft).astype(np.float64), axis=-1)) ** 2
     ref = 10 * np.log10(np.maximum(
-        power @ mel_ops.mel_filterbank(16000, 400, 80).T.astype(np.float64),
-        1e-10)).T
+        power @ mel_ops.mel_filterbank(sr, n_fft, n_mels).T.astype(
+            np.float64), 1e-10)).T
     return np.maximum(ref - ref.max(), -80.0)
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def k1_params(extra: dict) -> dict:
+    """K1's keyword arguments for a set of ``K1_PARAM_SETS`` (``top_db`` is
+    the wrapper's floor, not the kernel's): every size named, win_length =
+    n_fft."""
+    full = {"sr": 16000, "n_fft": 400, "hop_length": 160, "n_mels": 80,
+            "center": True, **extra}
+    full.pop("top_db", None)
+    return {**full, "win_length": full["n_fft"]}
+
+
+def plain_log_mel(y, top_db=80.0, **params):
+    """``log_mel_spectrogram_fused`` of one clip with K1's twin in the
+    kernel's place."""
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+
+    return k1.finish_db(k1.log_mel_db_plain(y[None], **params), top_db)[0]
+
+
+def k1_key(y, *args, **kwargs) -> tuple:
+    """An input of K1's wrapper ``log_mel_db``: shape, dtype and the
+    parameter set, defaults filled in."""
+    import inspect
+
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+
+    bound = inspect.signature(k1.log_mel_db_plain).bind(y, *args, **kwargs)
+    bound.apply_defaults()
+    return (*shape_key(y), *(v for k, v in bound.arguments.items()
+                             if k != "y"))
+
+
+def k1_flops(t: int, n_fft: int, support: int) -> float:
+    """Operations per clip of t frames that the function needs: the window,
+    a real n_fft-point FFT (2.5 N log2 N, half a complex FFT's 5 N log2 N),
+    the power c^2 + s^2 and the mel sums over each band's support."""
+    import numpy as np
+
+    return t * (n_fft + 2.5 * n_fft * np.log2(n_fft)
+                + 3 * (n_fft // 2 + 1) + 2 * support)
+
+
+class _FailingMelLibrary:
+    """K1's library with a launch that fails as a refused launch does."""
+
+    @staticmethod
+    def lipsync_log_mel(*args):
+        return 700  # cudaErrorIllegalAddress
+
+
+def engine_options_phase(dev, cfg, weights, eng32, r2) -> dict:
+    """Phase 5b: ``ScoringEngine``'s ``max_in_flight`` and
+    ``transfer_uint8`` on R2 in fp32. Groups of 4 windows streamed one at
+    a time and two at a time (the default) give the same logits, within
+    1e-3 of the one-group engine's; R2's windows a third of a uint8 step
+    off the grid, uploaded unrounded (``transfer_uint8=False``), score as
+    the model does on those fp32 windows (1e-5) and otherwise than the
+    rounded default, and uint8 windows score alike in both. R2's time at groups of 4 for 1 and 2 in flight (median
+    of 5, in turns) is a reading."""
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.inference.engine import ScoringEngine
+
+    crops, audio = r2
+    starts = list(range(0, len(crops) - cfg.video_frames + 1, STRIDE))
+    streamed = {k: ScoringEngine(weights, cfg, use_bfloat16=False,
+                                 max_batch=4, max_in_flight=k)
+                for k in (1, 2)}
+    logits = {k: e.score_track_logits(crops, starts, audio)
+              for k, e in streamed.items()}
+    one_group = eng32.score_track_logits(crops, starts, audio)
+
+    # The crops lie on the uint8 grid; a third of a step up keeps each
+    # pixel's rounding and moves what the unrounded forward sees.
+    windows = np.clip(np.stack([crops[s : s + cfg.video_frames]
+                                for s in starts]) + 0.3 / 255.0, 0.0, 1.0)
+    windows = windows.astype(np.float32)
+    raw_eng = ScoringEngine(weights, cfg, use_bfloat16=False,
+                            transfer_uint8=False)
+    raw = raw_eng.score_logits(windows, audio)
+    rounded = eng32.score_logits(windows, audio)
+    bucket = 1 << (len(windows) - 1).bit_length()
+
+    def padded(x):
+        return np.concatenate([x, np.repeat(x[-1:], bucket - len(x), 0)])
+
+    with torch.inference_mode():
+        direct = raw_eng.model(torch.from_numpy(padded(windows)).to(dev),
+                             torch.from_numpy(padded(audio)[..., None])
+                             .to(dev))[: len(windows)].cpu().numpy()
+    u8 = np.clip(windows * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+    def median_ms(engine):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.score_track_logits(crops, starts, audio)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    ms_1, ms_2 = median_ms(streamed[1]), median_ms(streamed[2])
+    ms_2b, ms_1b = median_ms(streamed[2]), median_ms(streamed[1])
+    out = {"windows": len(starts), "groups": -(-len(starts) // 4),
+           "in_flight_1_vs_2_max_abs": float(
+               np.abs(logits[1] - logits[2]).max()),
+           "groups_of_4_vs_one_group_max_abs": float(
+               np.abs(logits[2] - one_group).max()),
+           "unrounded_vs_model_max_abs": float(np.abs(raw - direct).max()),
+           "unrounded_vs_rounded_max_abs": float(
+               np.abs(raw - rounded).max()),
+           "uint8_windows_equal": bool(np.array_equal(
+               raw_eng.score_logits(u8, audio),
+               eng32.score_logits(u8, audio))),
+           "r2_ms_groups_of_4_in_flight_1": (ms_1 + ms_1b) / 2,
+           "r2_ms_groups_of_4_in_flight_2": (ms_2 + ms_2b) / 2}
+    emit({"phase": "engine_options", **out})
+    check(np.array_equal(logits[1], logits[2]),
+          f"max_in_flight changed the logits: {out}")
+    check(out["groups_of_4_vs_one_group_max_abs"] <= 1e-3,
+          f"groups of 4 vs one group: {out}")
+    check(out["unrounded_vs_model_max_abs"] <= 1e-5
+          and out["unrounded_vs_rounded_max_abs"] > 0
+          and out["uint8_windows_equal"],
+          f"transfer_uint8=False: {out}")
+    return out
+
+
+def k1_param_phase(dev, rng, time_ms, in_turns, bound_ms, checked) -> dict:
+    """Phase 3b: K1 against its twin at every set of ``K1_PARAM_SETS`` at
+    ``K1_PARAM_SAMPLES`` samples, on white noise (the JAX package's own
+    signal for its < 1e-3 dB bound, tests/test_ops.py): < 1e-3 dB, at an
+    empty band 10 log10(1e-10) dB, with kernel, twin, library
+    (``ops/mel.py``) and bound times; at the defaults also the
+    run-time-sized kernel against the fixed one. On ``synthetic.pcm``
+    (a tone over noise, mel bands down at the -80 dB floor) K1 and its twin
+    against a float64 chain of the set, floored at -80 dB: K1 within the
+    2.5e-3 dB fp32 floor of quiet bands. Kernel times from CUDA events per
+    call and from the profiler (``device_ms``). Then the routes around K1:
+    outside its range the audio preprocessing launches no K1
+    (``ops/mel.py``'s chain, finite, of the right shape) and the wrapper
+    raises before a launch; inside it an injected K1 failure ends the
+    preprocessing."""
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.ops import mel as mel_ops
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+    from lipsync_tpu_torch.preprocessing import audio as audio_mod
+    from lipsync_tpu_torch.utils import synthetic
+
+    n = K1_PARAM_SAMPLES
+    y2 = torch.from_numpy(
+        (0.2 * rng.standard_normal(n)).astype(np.float32)).to(dev)[None]
+    yq = synthetic.pcm(rng, n)
+    yq2 = torch.from_numpy(yq).to(dev)[None]
+    rows = []
+    for name, extra in K1_PARAM_SETS.items():
+        p = k1_params(extra)
+        top_db = extra.get("top_db", 80.0)
+        t = k1.n_frames_for(n, p["n_fft"], p["hop_length"], p["center"])
+        got = k1.finish_db(k1.log_mel_db(y2, **p), top_db)
+        want = k1.finish_db(k1.log_mel_db_plain(y2, **p), top_db)
+        lib = mel_ops.log_mel_spectrogram(y2[0], top_db=top_db, **p)
+        torch.cuda.synchronize()
+        check(got.shape == (1, p["n_mels"], t), f"K1 {name}: {got.shape}")
+        err = float((got - want).abs().max())
+        checked["log_mel"].add(k1_key(y2, **p))
+        ref = mel_float64(yq, **p)
+        quiet = {f"{what}_vs_f64_db": float(np.abs(
+            k1.finish_db(fn(yq2, **p))[0].cpu().numpy() - ref).max())
+            for what, fn in (("kernel", k1.log_mel_db),
+                             ("twin", k1.log_mel_db_plain))}
+        tables = k1.kernel_tables(dev, p["sr"], p["n_fft"], p["n_mels"])
+        bands = tables[4].cpu()
+        empty = [m for m in range(p["n_mels"]) if bands[m, 1] < bands[m, 0]]
+        support = int((bands[:, 1] - bands[:, 0] + 1).clamp(min=0).sum())
+        flops = k1_flops(t, p["n_fft"], support)
+        n_bytes = (4 * (n + p["n_mels"] * t)
+                   + sum(tb.numel() * tb.element_size() for tb in tables))
+        bms, bby = bound_ms(n_bytes, flops)
+        kms, pms = in_turns(lambda: k1.log_mel_db(y2, **p),
+                            lambda: k1.log_mel_db_plain(y2, **p))
+        row = {"set": name, "params": {**p, "top_db": top_db}, "n": n,
+               "frames": t, "max_abs_err_db": err,
+               "max_abs_err_vs_rfft_db": float((got[0] - lib).abs().max()),
+               "quiet_band": quiet, "empty_bands": len(empty),
+               "kernel_ms": kms, "plain_ms": pms,
+               "kernel_device_ms": device_ms(lambda: k1.log_mel_db(y2, **p),
+                                             K1_KERNELS),
+               "library_ms": time_ms(lambda: mel_ops.log_mel_spectrogram(
+                   y2[0], top_db=top_db, **p)),
+               "bound_ms": bms, "bound_by": bby, "bound_basis": SIMT,
+               "gflop": flops / 1e9, "mbytes": n_bytes / 1e6}
+        if empty:
+            absolute = k1.log_mel_db(y2, **p)[0, empty]
+            row["empty_band_db"] = [float(absolute.min()),
+                                    float(absolute.max())]
+        if name == "defaults":
+            general = k1._launch(y2, p, t, general=True)
+            row["general_vs_fixed_db"] = float(
+                (general - k1.log_mel_db(y2, **p)).abs().max())
+            row["fixed_ms"], row["general_ms"] = in_turns(
+                lambda: k1.log_mel_db(y2, **p),
+                lambda: k1._launch(y2, p, t, general=True))
+            row["general_device_ms"] = device_ms(
+                lambda: k1._launch(y2, p, t, general=True), K1_KERNELS)
+        rows.append(row)
+        emit({"phase": "k1_params", **row})
+        check(err < 1e-3, f"K1 vs twin at {name}: {err} dB")
+        check(quiet["kernel_vs_f64_db"] <= 2.5e-3,
+              f"K1 past the fp32 floor at quiet bands at {name}: {quiet}")
+        check(not empty or max(abs(v + 100.0) for v in row["empty_band_db"])
+              <= 1e-4, f"K1 {name}: empty bands {row.get('empty_band_db')}")
+        check(name != "defaults" or row["general_vs_fixed_db"] < 1e-3,
+              f"K1 run-time-sized vs fixed: {row.get('general_vs_fixed_db')}")
+
+    # The routes around K1.
+    pcm = synthetic.pcm(rng, 41000)
+    routes = {}
+    for name, kw in K1_OUTSIDE.items():
+        before = k1.launches
+        mel = audio_mod.preprocess_audio_pcm(pcm, device=dev, **kw)
+        torch.cuda.synchronize()
+        n_mels = kw.get("n_mels", 80)
+        cpu = audio_mod.preprocess_audio_pcm(pcm, device="cpu", **kw)
+        routes[name] = {"k1_launches": k1.launches - before,
+                        "shape": list(mel.shape),
+                        "card_vs_cpu_db": float(np.abs(mel - cpu).max())}
+        check(k1.launches == before, f"{name}: the chain launched K1")
+        check(mel.shape == (n_mels, 1 + len(pcm) // 160)
+              and bool(np.isfinite(mel).all()), f"{name}: {mel.shape}")
+        try:
+            k1.log_mel_spectrogram_fused(
+                y2, n_fft=kw.get("win_length", 400),
+                win_length=kw.get("win_length", 400), n_mels=n_mels)
+            routes[name]["wrapper_raised"] = None
+        except ValueError as e:
+            routes[name]["wrapper_raised"] = str(e)
+        check(routes[name]["wrapper_raised"] is not None
+              and k1.launches == before,
+              f"{name}: K1's wrapper did not refuse before a launch")
+    saved = k1._library
+    k1._library = _FailingMelLibrary
+    try:
+        audio_mod.preprocess_audio_pcm(pcm, win_length=511, n_mels=128,
+                                       device=dev)
+        routes["injected_failure"] = None
+    except RuntimeError as e:
+        routes["injected_failure"] = str(e)
+    finally:
+        k1._library = saved
+    emit({"phase": "k1_routes", **routes})
+    check(routes["injected_failure"] is not None
+          and "log_mel kernel launch failed" in routes["injected_failure"],
+          f"an injected K1 failure did not end the call: {routes}")
+    return {"rows": rows, "routes": routes}
 
 
 # How a clip reaches the predictor on the card. The card's machine has no
@@ -445,8 +742,9 @@ class InMemoryClips:
 @contextlib.contextmanager
 def kernel_inputs(seen: dict):
     """While open, adds the (shape, dtype) of every input that a kernel's
-    wrapper gets to ``seen[name]`` (for K3 and K4 the keys of
-    :func:`k3_key` and :func:`k4_key`); the wrapper runs as it would."""
+    wrapper gets to ``seen[name]`` (for K1 with its parameter set,
+    :func:`k1_key`; for K3 and K4 the keys of :func:`k3_key` and
+    :func:`k4_key`); the wrapper runs as it would."""
     from lipsync_tpu_torch.models import artifact as artifact_mod
     from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import mel as k1
@@ -456,13 +754,13 @@ def kernel_inputs(seen: dict):
              layers_mod.quantize, layers_mod.absmax_quantize,
              layers_mod.int8_conv_int32)
 
-    def logged(name, fn, key=lambda x, *args: shape_key(x)):
+    def logged(name, fn, key=lambda x, *args, **kwargs: shape_key(x)):
         def call(x, *args, **kwargs):
-            seen.setdefault(name, set()).add(key(x, *args))
+            seen.setdefault(name, set()).add(key(x, *args, **kwargs))
             return fn(x, *args, **kwargs)
         return call
 
-    k1.log_mel_db = logged("log_mel", saved[0])
+    k1.log_mel_db = logged("log_mel", saved[0], k1_key)
     artifact_mod.hf_stem = logged("hf_stem", saved[1])
     layers_mod.int8_conv_dequant = logged("int8_conv", saved[2], k3_key)
     layers_mod.absmax = logged("int8_quant", saved[3], k4_key)
@@ -487,20 +785,20 @@ def conv_key(x, w, stride, padding) -> tuple:
             tuple(int(v) for v in padding))
 
 
-def k3_key(x, w, scale, bias, out_dtype, stride, padding) -> tuple:
+def k3_key(x, w, scale, bias, out_dtype, stride, padding, **_) -> tuple:
     """An input of K3's dequantizing entry: its geometry, whether it adds a
     bias, and the dtype it writes."""
     return (*conv_key(x, w, stride, padding), bias is not None,
             str(out_dtype).removeprefix("torch."))
 
 
-def k3_int32_key(x, w, stride, padding) -> tuple:
+def k3_int32_key(x, w, stride, padding, **_) -> tuple:
     """An input of K3's int32 entry: its geometry, and that it writes
     int32."""
     return (*conv_key(x, w, stride, padding), False, "int32")
 
 
-def k4_key(x, arg=None) -> tuple:
+def k4_key(x, arg=None, **_) -> tuple:
     """An input of K4 (``absmax(x, frames)``, ``quantize(x, scale)`` or
     ``absmax_quantize(x, w_scale)``): shape, dtype, memory layout, and
     whether absmax read a frame range. The single launch and the pair
@@ -1397,7 +1695,8 @@ def parent_int8_conv(x, weight, bias, stride, padding):
     return out.movedim(-1, 1).to(x.dtype)
 
 
-# Device-kernel names of K3 and K4, as the profiler reports them.
+# Device-kernel names of K1, K3 and K4, as the profiler reports them.
+K1_KERNELS = ("log_mel_kernel",)
 K3_KERNELS = ("int8_conv_wgmma_kernel", "int8_conv_halo_kernel")
 K4_PAIR = ("absmax_kernel", "quant_rows_kernel", "quant_transpose_kernel")
 K4_KERNELS = ("absmax_quantize_kernel", *K4_PAIR)
@@ -3145,8 +3444,7 @@ def tools_phase(dev, cfg, smi, record) -> dict:
             pcm = memory.clips[rel][1]
             got = audio_mod.preprocess_audio_pcm(pcm, device=dev)
             saved = audio_mod.log_mel_spectrogram_fused
-            audio_mod.log_mel_spectrogram_fused = (
-                lambda y: k1.finish_db(k1.log_mel_db_plain(y[None]))[0])
+            audio_mod.log_mel_spectrogram_fused = plain_log_mel
             try:
                 twin = audio_mod.preprocess_audio_pcm(pcm, device=dev)
             finally:
@@ -4706,15 +5004,6 @@ def main() -> None:
     bands = k1_tables[4].cpu()
     support = int((bands[:, 1] - bands[:, 0] + 1).clamp(min=0).sum())
 
-    def k1_flops(t: int) -> float:
-        """Operations per clip of t frames that the function needs: the
-        window, a real 400-point FFT (2.5 N log2 N, half a complex FFT's
-        5 N log2 N), the power c^2 + s^2 and the mel sums over each band's
-        support."""
-        n_fft = k1.N_FFT
-        return t * (n_fft + 2.5 * n_fft * np.log2(n_fft)
-                    + 3 * (n_fft // 2 + 1) + 2 * support)
-
     k1_rows = {}
     checked = {"log_mel": set(), "hf_stem": set(), "int8_conv": set(),
                "int8_quant": set()}
@@ -4728,8 +5017,8 @@ def main() -> None:
         err = float((got - want).abs().max())
         err_lib = float((got[0] - lib).abs().max())
         check(err < 1e-3, f"K1 vs twin at n={n}: {err} dB")
-        checked["log_mel"].add(shape_key(y2))
-        flops = k1_flops(t)
+        checked["log_mel"].add(k1_key(y2))
+        flops = k1_flops(t, k1.N_FFT, support)
         n_bytes = 4 * (n + 80 * t) + k1_bytes
         bms, bby = bound_ms(n_bytes, flops)
         kms, pms = in_turns(lambda: k1.log_mel_db(y2),
@@ -4750,7 +5039,7 @@ def main() -> None:
         err = float((k1.finish_db(k1.log_mel_db(y2))
                      - k1.finish_db(k1.log_mel_db_plain(y2))).abs().max())
         check(err < 1e-3, f"K1 vs twin at n={n}: {err} dB")
-        checked["log_mel"].add(shape_key(y2))
+        checked["log_mel"].add(k1_key(y2))
         emit({"phase": "k1_mel", "n": n, "max_abs_err_db": err})
 
     # Quiet bands: a loud tone over faint noise puts mel bands 75-80 dB
@@ -4772,6 +5061,9 @@ def main() -> None:
           f"K1 rounds worse than its twin at quiet bands: {quiet}")
     check(quiet["kernel_vs_f64_db"] <= 2.5e-3,
           f"K1 rounds past the fp32 floor at quiet bands: {quiet}")
+
+    # ── 3b. K1 at every parameter set; the routes around it ──────────
+    k1_sets = k1_param_phase(dev, rng, time_ms, in_turns, bound_ms, checked)
 
     # ── 4. K2 vs its twin ─────────────────────────────────────────────
     gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -4927,8 +5219,7 @@ def main() -> None:
     def plain_kernels():
         """The same path with each kernel's twin in its place."""
         saved = (audio_mod.log_mel_spectrogram_fused, artifact_mod.hf_stem)
-        audio_mod.log_mel_spectrogram_fused = (
-            lambda y: k1.finish_db(k1.log_mel_db_plain(y[None]))[0])
+        audio_mod.log_mel_spectrogram_fused = plain_log_mel
         artifact_mod.hf_stem = k2.hf_stem_plain
         try:
             with plain_int8():
@@ -5076,6 +5367,11 @@ def main() -> None:
               "windows_per_s_fp32": n_win / lat32,
               "stage_ms_bf16": stages, "profile_bf16": prof})
 
+    # ── 5b. the engine's streaming and transfer options on R2 ─────────
+    engine_options_phase(
+        dev, cfg, weight_sets["bn_calibrated"], eng32,
+        track_inputs(requests["R2"]))
+
     # ── 6. the predictor: a clip in, a verdict out ────────────────────
     predictor_launches = predictor_phase(
         eng16, eng32, cfg, profile_served, plain_kernels,
@@ -5177,7 +5473,21 @@ def main() -> None:
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
-         "library_ms": m["library_ms"]},
+         "library_ms": m["library_ms"],
+         # phase 3b: every parameter set at 65536 samples; at the defaults
+         # the fixed kernel (n_fft = 400 at compile time) against the
+         # run-time-sized one, in turns
+         "param_sets": [
+             {"set": r["set"], "params": r["params"],
+              "max_abs_err": r["max_abs_err_db"], "ms": r["kernel_ms"],
+              "device_ms": r["kernel_device_ms"],
+              "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+             for r in k1_sets["rows"]],
+         "defaults_fixed_ms": k1_sets["rows"][0]["fixed_ms"],
+         "defaults_general_ms": k1_sets["rows"][0]["general_ms"],
+         "defaults_general_device_ms":
+             k1_sets["rows"][0]["general_device_ms"]},
         {"name": "hf_stem", "route": "cuda",
          "source": "lipsync_tpu_torch/csrc/hf_stem.cu",
          "replaces": "lipsync_tpu/ops/pallas/hf_stem.py:174",

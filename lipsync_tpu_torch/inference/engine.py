@@ -3,10 +3,16 @@
 Counterpart of ``inference/engine.py`` in the JAX package: every window of
 a request goes through one batched forward, padded to a power-of-two
 bucket by repeating the last row. Pixels travel as uint8 (``x*255+0.5``
-rounding on the host, ``/255`` on the device), and the long-video path
-uploads a track's crops once and gathers its overlapping windows on the
-device. The forward runs under ``torch.inference_mode()``; on CUDA it runs
-in bf16 by default (``use_bfloat16=None``), on the CPU in fp32.
+rounding on the host, ``/255`` on the device) unless ``transfer_uint8`` is
+False, when float windows upload as fp32 and reach the forward unrounded
+(uint8 windows keep the ``/255`` path); the long-video path uploads a
+track's crops once, as uint8 either way, and gathers its overlapping
+windows on the device. A stream of more windows than ``max_batch`` goes in
+groups, and up to ``max_in_flight`` groups are dispatched before the oldest
+is read back (the host pads, rounds and issues the next group's upload
+before it waits for the one before). The forward runs under
+``torch.inference_mode()``; on CUDA it runs in bf16 by default
+(``use_bfloat16=None``), on the CPU in fp32.
 
 The JAX engine's single-device serving options, each off by default:
 ``shared_visual_encoding`` (the long path encodes a track's frames once and
@@ -102,7 +108,9 @@ class ScoringEngine:
         use_bfloat16: Optional[bool] = None,
         mesh: Optional[Sequence[DeviceLike]] = None,
         max_batch: int = 256,
+        transfer_uint8: bool = True,
         shared_visual_encoding: bool = False,
+        max_in_flight: int = 2,
         quantized_int8: bool = False,
         fold_hf_stem: bool = False,
         device: DeviceLike = None,
@@ -133,8 +141,10 @@ class ScoringEngine:
             self._replicas[d] = copy.deepcopy(self.model).to(d)
         self.calibrator = calibrator or Calibrator()
         self.max_batch = int(max_batch)
-        # Groups a streaming caller keeps enqueued before reading one back.
-        self.max_in_flight = 2
+        # Groups kept dispatched before the oldest is read back (1: each
+        # group is read back before the next is dispatched).
+        self.max_in_flight = max(1, int(max_in_flight))
+        self.transfer_uint8 = bool(transfer_uint8)
 
     @property
     def variables(self) -> Dict[str, torch.Tensor]:
@@ -196,34 +206,45 @@ class ScoringEngine:
         bucket = self._bucket(n)
         visual, audio = _pad_rows(visual, bucket), _pad_rows(audio, bucket)
         if visual.dtype != np.uint8:
-            visual = _to_uint8(visual)
+            visual = (_to_uint8(visual) if self.transfer_uint8
+                      else visual.astype(np.float32, copy=False))
         audio = audio.astype(np.float32, copy=False)
+        as_u8 = visual.dtype == np.uint8
 
         def run(model, dev, lo, hi):
             v = self._upload(visual[lo:hi], dev)
-            return model(v.float() / 255.0, self._upload(audio[lo:hi], dev))
+            v = v.float() / 255.0 if as_u8 else v
+            return model(v, self._upload(audio[lo:hi], dev))
 
         return self._over_rows(bucket, run)
 
-    @staticmethod
-    def _read_back(groups) -> np.ndarray:
-        """Read back ``(device logits, n)`` groups in order."""
-        return np.concatenate([d[:n].cpu().numpy() for d, n in groups])
+    def _stream(self, groups) -> np.ndarray:
+        """Dispatch ``(dispatch, n)`` groups in order, keeping up to
+        ``max_in_flight`` dispatched before the oldest is read back, and
+        concatenate their first ``n`` logits."""
+        out, pending = [], []
+        for dispatch, n in groups:
+            pending.append((dispatch(), n))
+            while len(pending) >= self.max_in_flight:
+                d, k = pending.pop(0)
+                out.append(d[:k].cpu().numpy())
+        out.extend(d[:k].cpu().numpy() for d, k in pending)
+        return np.concatenate(out)
 
     def score_logits(self, visual: np.ndarray,
                      audio: np.ndarray) -> np.ndarray:
         """``(N, T, H, W, 3)`` visual + ``(N, F, T_a[, 1])`` mel -> ``(N,)``
-        fp32 logits, in groups of ``max_batch``."""
+        fp32 logits, in groups of ``max_batch``, ``max_in_flight`` of them
+        dispatched at a time."""
         n = visual.shape[0]
         if n == 0:
             return np.zeros((0,), np.float32)
-        groups = (
-            (self.dispatch_logits(visual[i : i + self.max_batch],
-                                  audio[i : i + self.max_batch]),
-             min(self.max_batch, n - i))
-            for i in range(0, n, self.max_batch)
-        )
-        return self._read_back(groups)
+        b = self.max_batch
+        return self._stream(
+            (lambda i=i: self.dispatch_logits(visual[i : i + b],
+                                              audio[i : i + b]),
+             min(b, n - i))
+            for i in range(0, n, b))
 
     def score_probs(self, visual: np.ndarray, audio: np.ndarray) -> np.ndarray:
         """Calibrated P(REAL) per window."""
@@ -246,13 +267,12 @@ class ScoringEngine:
         w = len(starts)
         if w == 0:
             return np.zeros((0,), np.float32)
-        groups = (
-            (self.dispatch_track_logits(crops, starts[i : i + self.max_batch],
-                                        audio_windows[i : i + self.max_batch]),
-             len(starts[i : i + self.max_batch]))
-            for i in range(0, w, self.max_batch)
-        )
-        return self._read_back(groups)
+        b = self.max_batch
+        return self._stream(
+            (lambda i=i: self.dispatch_track_logits(
+                crops, starts[i : i + b], audio_windows[i : i + b]),
+             len(starts[i : i + b]))
+            for i in range(0, w, b))
 
     def dispatch_track_logits(
         self,

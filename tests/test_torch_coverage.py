@@ -4,12 +4,18 @@ method of a public class, has a counterpart of the same name in the port's
 module of the same path, or stands in the table below as a rename or as
 needing no port, with its reason (ROADMAP.md gives the same reasons).
 
+The counterpart takes the same parameters: names, order and defaults (a
+class's are its ``__init__``'s, or its fields where it has none, as a flax
+module or a dataclass does), apart from the differences of idiom in
+``IDIOMS``, each with its reason. The scripts' command-line flags and
+defaults are held against the tools' the same way (``FLAG_IDIOMS``).
+
 The walk reads both packages with ``ast``; it imports neither.
 """
 
 import ast
 from pathlib import Path
-from typing import Dict, Set
+from typing import Dict, List, NamedTuple, Optional, Set, Tuple
 
 import pytest
 
@@ -66,6 +72,155 @@ NEEDS_NO_PORT = {
         "no code in the JAX package reads it",
     ("serving/schemas.py", "JobStatusResponse"):
         "no code in the JAX package reads it",
+}
+
+
+class Idiom(NamedTuple):
+    """A difference of idiom between a JAX signature and the port's: JAX
+    parameters the port has no use for (``drop``), parameters only the port
+    takes (``add``), JAX names the port spells otherwise (``rename``, pairs)
+    and defaults that the idiom changes (``defaults``, pairs of port name
+    and default source)."""
+
+    reason: str
+    drop: Tuple[str, ...] = ()
+    add: Tuple[str, ...] = ()
+    rename: Tuple[Tuple[str, str], ...] = ()
+    defaults: Tuple[Tuple[str, str], ...] = ()
+
+
+DEVICE = ("the port's entry points take the torch device they run on: "
+          "cuda:0 unless the caller asks for the CPU (utils/device.py)")
+FLAX_DTYPE = ("a flax module's dtype field; a torch module takes its dtype "
+              "from .to() or from the model that builds it")
+FLAX_FIELDS = ("flax module fields become the torch module's constructor "
+               "arguments, with the input widths that flax infers and "
+               "PyTorch's names (features -> out_channels, strides -> "
+               "stride, use_bias -> bias, act a switch for ReLU)")
+TRAIN = ("flax's train= argument is the torch module's mode (model.train() "
+         "/ model.eval())")
+TORCH_STATE = ("JAX's explicit variables, state, opt_state, params and rng "
+               "become torch state: the module's parameters and state dict, "
+               "the optimizer object and torch.Generator seeds")
+TORCH_DTYPE = "jnp.float32 -> torch.float32"
+
+# (JAX module, JAX name) -> how the port's parameters differ by idiom.
+IDIOMS = {
+    **{("inference/engine.py", n): Idiom(DEVICE, add=("device",))
+       for n in ("ScoringEngine", "load_engine")},
+    ("inference/predictor.py", "Predictor"): Idiom(DEVICE, add=("device",)),
+    **{("preprocessing/audio.py", n): Idiom(DEVICE, add=("device",))
+       for n in ("preprocess_audio", "preprocess_audio_pcm")},
+    **{("preprocessing/video.py", n): Idiom(DEVICE, add=("device",))
+       for n in ("crop_track_on_device", "detect_and_crop_tracks",
+                 "preprocess_video", "preprocess_video_tracks",
+                 "preprocess_video_tracks_chunked")},
+    ("training/data.py", "LipSyncDataset"): Idiom(DEVICE, add=("device",)),
+    ("training/device_cache.py", "DeviceDatasetCache"):
+        Idiom(DEVICE, add=("device",)),
+    **{(m, "run_" + n): Idiom(DEVICE, add=("device",))
+       for m, n in (("training/train.py", "training"),
+                    ("training/finetune.py", "finetune"))},
+    ("utils/device.py", "device_summary"): Idiom(DEVICE, add=("device",)),
+    ("utils/device.py", "get_platform"):
+        Idiom(DEVICE + "; a device where JAX prefers a platform name",
+              rename=(("prefer", "device"),)),
+    ("parallel/mesh.py", "make_mesh"):
+        Idiom(DEVICE + "; the mesh's device type", add=("device_type",)),
+    ("serving/config.py", "Settings"):
+        Idiom("the service's device: 'cuda' where the JAX package's is "
+              "'tpu'", defaults=(("device", "'cuda'"),)),
+    **{("models/" + m, n): Idiom(FLAX_DTYPE, drop=("dtype",))
+       for m, n in (("artifact.py", "ArtifactDetector"),
+                    ("artifact.py", "HighFrequencyDetector"),
+                    ("artifact.py", "TemporalInconsistencyDetector"),
+                    ("audio_encoder.py", "AudioEncoder"),
+                    ("fusion.py", "CrossModalAttention"),
+                    ("fusion.py", "LegacyFusionModule"),
+                    ("layers.py", "MultiHeadAttention"),
+                    ("layers.py", "TransformerEncoderLayer"),
+                    ("temporal.py", "TemporalTransformer"),
+                    ("visual_encoder.py", "VisualEncoder"))},
+    ("models/classifier.py", "ClassificationHead"):
+        Idiom(FLAX_FIELDS, drop=("dtype",), add=("in_dim",)),
+    ("models/fusion.py", "FeatureProjection"):
+        Idiom(FLAX_FIELDS, drop=("dtype",), add=("visual_dim", "audio_dim")),
+    ("models/layers.py", "ConvBNAct"):
+        Idiom(FLAX_FIELDS, drop=("dtype",), add=("in_channels",),
+              rename=(("features", "out_channels"), ("strides", "stride"),
+                      ("use_bias", "bias")),
+              defaults=(("act", "True"),)),
+    ("models/layers.py", "ResidualBlockND"):
+        Idiom(FLAX_FIELDS, drop=("dtype",), add=("in_channels",),
+              rename=(("features", "out_channels"), ("strides", "stride"))),
+    ("models/layers.py", "Int8Conv"):
+        Idiom("the flax layer becomes the lowering that ConvBNAct calls "
+              "with its weights: the input, weight and bias are arguments "
+              "and the widths come from the weight",
+              drop=("features", "kernel_size", "use_bias", "dtype"),
+              add=("x", "weight", "bias"), rename=(("strides", "stride"),)),
+    ("models/lip_sync_model.py", "LipSyncModel"):
+        Idiom(TORCH_DTYPE, defaults=(("dtype", "torch.float32"),)),
+    ("models/lip_sync_model.py", "LipSyncModel.setup"):
+        Idiom("flax's setup() reads the module's fields; torch's __init__ "
+              "takes them as arguments", add=("config", "dtype")),
+    ("models/lip_sync_model.py", "example_inputs"):
+        Idiom(TORCH_DTYPE + "; " + DEVICE, add=("device",),
+              defaults=(("dtype", "torch.float32"),)),
+    **{("models/lip_sync_model.py", "LipSyncModel." + n):
+       Idiom(TRAIN, drop=("train",))
+       for n in ("encode_visual", "score_encoded")},
+    ("ops/augment.py", "augment_batch"):
+        Idiom(TORCH_STATE, rename=(("rng", "generator"),)),
+    ("ops/pallas/hf_stem.py", "hf_stem_fused"):
+        Idiom("Pallas's interpret mode: the port runs the kernel's twin for "
+              "a CPU tensor; and PyTorch's names for the same tensors (the "
+              "Laplacian and conv weights, the conv bias, BatchNorm's "
+              "weight, which flax calls scale)", drop=("interpret",),
+              rename=(("wlap", "lap_weight"), ("w1", "conv_weight"),
+                      ("b1", "conv_bias"), ("bn_scale", "bn_weight"))),
+    ("ops/pallas/mel_kernel.py", "log_mel_spectrogram_pallas"):
+        Idiom("Pallas's interpret mode: the port runs the kernel's twin for "
+              "a CPU tensor", drop=("interpret",)),
+    ("preprocessing/lip_localizer.py", "forward"):
+        Idiom("xp picks numpy or jax.numpy in the JAX package; the port's "
+              "forward is numpy", drop=("xp",)),
+    ("training/checkpoints.py", "load_checkpoint"):
+        Idiom(TORCH_STATE + "; orbax restores into a template pytree, a "
+              "state dict needs none", drop=("template",)),
+    ("training/checkpoints.py", "load_checkpoint_partially"):
+        Idiom(TORCH_STATE, rename=(("variables", "state_dict"),
+                                   ("ckpt_variables", "ckpt_state_dict"))),
+    ("training/checkpoints.py", "save_checkpoint"):
+        Idiom(TORCH_STATE, rename=(("variables", "state_dict"),)),
+    **{(m, n): Idiom(TORCH_STATE + "; " + DEVICE, drop=("state",),
+                     add=("device",))
+       for m, n in (("training/finetune.py", "collect_val_probs"),
+                    ("training/train.py", "validate"))},
+    ("training/optimizers.py", "ReduceLROnPlateau.step"):
+        Idiom(TORCH_STATE, rename=(("opt_state", "optimizer"),)),
+    ("training/optimizers.py", "current_learning_rate"):
+        Idiom(TORCH_STATE, rename=(("opt_state", "optimizer"),)),
+    ("training/optimizers.py", "label_params"):
+        Idiom(TORCH_STATE, rename=(("params", "named_params"),)),
+    ("training/optimizers.py", "make_phase_optimizer"):
+        Idiom(TORCH_STATE + "; a torch optimizer is built over the "
+              "parameters it updates", add=("named_params",)),
+    ("training/steps.py", "TrainState"):
+        Idiom(TORCH_STATE + "; a data-parallel rank's shard of the batch "
+              "(one process per device under torch.distributed)",
+              drop=("params", "batch_stats", "opt_state", "rng"),
+              add=("model", "optimizer", "generator", "aug_generator",
+                   "shard"),
+              defaults=(("step", "0"),)),
+    ("training/steps.py", "create_train_state"):
+        Idiom(TORCH_STATE + "; flax's init traces an example batch, a "
+              "torch module is built with its shapes; a data-parallel "
+              "rank's shard", drop=("example_batch",), add=("shard",),
+              rename=(("rng", "seed"),)),
+    ("training/steps.py", "make_train_step"):
+        Idiom(TORCH_STATE + "; the step reads the model and the optimizer "
+              "from the TrainState it is given", drop=("model", "optimizer")),
 }
 
 JAX_MODULES = sorted(p.relative_to(JAX_PKG).as_posix()
@@ -145,6 +300,140 @@ def test_the_table_is_only_renames_and_the_recorded_exceptions():
         "training/optimizers.py", "models/lip_sync_model.py",
         "models/convert.py", "ops/image.py", "parallel/mesh.py",
         "serving/schemas.py"}
+
+
+# ── parameters ───────────────────────────────────────────────────────────
+
+Signature = List[Tuple[str, Optional[str]]]
+
+
+def _defs(path: Path) -> Dict[str, ast.AST]:
+    """Top-level defs and classes, and ``Class.method``, by name."""
+    out: Dict[str, ast.AST] = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out[node.name] = node
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out[f"{node.name}.{sub.name}"] = sub
+    return out
+
+
+def _signature(node: ast.AST) -> Signature:
+    """``(name, default source or None)`` of each parameter in order:
+    ``*args`` and ``**kwargs`` as ``*args`` and ``**kwargs``. A class's are
+    its ``__init__``'s without ``self``, or, where it has none, its
+    annotated fields (a flax module's, a dataclass's, a pydantic model's)."""
+    if isinstance(node, ast.ClassDef):
+        for sub in node.body:
+            if isinstance(sub, ast.FunctionDef) and sub.name == "__init__":
+                return _signature(sub)[1:]
+        return [(f.target.id, None if f.value is None
+                 else ast.unparse(f.value)) for f in node.body
+                if isinstance(f, ast.AnnAssign)
+                and isinstance(f.target, ast.Name)]
+    a = node.args
+    pos = a.posonlyargs + a.args
+    defaults = [None] * (len(pos) - len(a.defaults)) + [
+        ast.unparse(d) for d in a.defaults]
+    out: Signature = [(p.arg, d) for p, d in zip(pos, defaults)]
+    if a.vararg:
+        out.append(("*" + a.vararg.arg, None))
+    out += [(p.arg, None if d is None else ast.unparse(d))
+            for p, d in zip(a.kwonlyargs, a.kw_defaults)]
+    if a.kwarg:
+        out.append(("**" + a.kwarg.arg, None))
+    return out
+
+
+def _translate(jax_sig: Signature, port_sig: Signature,
+               idiom: Optional[Idiom]) -> Tuple[Signature, Signature]:
+    """Both signatures with the idiom's differences taken out: the JAX one
+    without ``drop``, renamed, with the idiom's defaults; the port's without
+    ``add``."""
+    if idiom is None:
+        return jax_sig, port_sig
+    rename, defaults = dict(idiom.rename), dict(idiom.defaults)
+    jax_sig = [(rename.get(n, n), d) for n, d in jax_sig
+               if n not in idiom.drop]
+    jax_sig = [(n, defaults.get(n, d)) for n, d in jax_sig]
+    return jax_sig, [(n, d) for n, d in port_sig if n not in idiom.add]
+
+
+def _counterparts():
+    """``(key, JAX signature, port signature)`` for every public JAX name
+    that has a counterpart."""
+    out = []
+    for module in JAX_MODULES:
+        jax_defs = _defs(JAX_PKG / module)
+        for name in sorted(_names(JAX_PKG / module)):
+            key = (module, name)
+            if key in NEEDS_NO_PORT:
+                continue
+            target_module, target = RENAMES.get(key, (module, name))
+            port_defs = _defs(PORT_PKG / target_module)
+            if target in port_defs:
+                out.append((key, _signature(jax_defs[name]),
+                            _signature(port_defs[target])))
+    return out
+
+
+COUNTERPARTS = _counterparts()
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_counterpart_takes_the_jax_parameters(module):
+    """Names, order and defaults equal, after the idiom's differences."""
+    wrong = []
+    for key, jax_sig, port_sig in COUNTERPARTS:
+        if key[0] != module:
+            continue
+        want, got = _translate(jax_sig, port_sig, IDIOMS.get(key))
+        if want != got:
+            wrong.append(f"{key[1]}: JAX {want}, port {got}")
+    assert not wrong, f"{module}: " + "; ".join(wrong)
+
+
+@pytest.mark.parametrize("key", sorted(IDIOMS), ids=lambda k: "::".join(k))
+def test_every_idiom_is_current(key):
+    """Each entry excuses a difference that exists: its signatures differ
+    without it, every name it drops, renames or sets a default for is a
+    JAX parameter, every name it adds a port parameter, and it has a
+    reason."""
+    idiom = IDIOMS[key]
+    found = [(j, p) for k, j, p in COUNTERPARTS if k == key]
+    assert found, f"{key} has no counterpart"
+    jax_sig, port_sig = found[0]
+    jax_names = [n for n, _ in jax_sig]
+    port_names = [n for n, _ in port_sig]
+    assert jax_sig != port_sig, f"{key}: nothing differs, drop the entry"
+    assert set(idiom.drop) | {a for a, _ in idiom.rename} <= set(jax_names)
+    renamed = {dict(idiom.rename).get(n, n) for n in jax_names}
+    assert {n for n, _ in idiom.defaults} <= renamed
+    assert set(idiom.add) <= set(port_names) and not (
+        set(idiom.add) & renamed)
+    assert len(idiom.reason) > 10
+
+
+def test_the_repaired_gaps_are_no_idiom():
+    """K1 takes the Pallas kernel's parameters, the audio preprocessing
+    the JAX one's, and the engine transfer_uint8 and max_in_flight: their
+    entries excuse only interpret and the device."""
+    assert IDIOMS[("ops/pallas/mel_kernel.py", "log_mel_spectrogram_pallas")
+                  ] == Idiom(IDIOMS[("ops/pallas/mel_kernel.py",
+                                     "log_mel_spectrogram_pallas")].reason,
+                             drop=("interpret",))
+    for key in (("preprocessing/audio.py", "preprocess_audio"),
+                ("preprocessing/audio.py", "preprocess_audio_pcm"),
+                ("inference/engine.py", "ScoringEngine")):
+        assert IDIOMS[key] == Idiom(DEVICE, add=("device",)), key
+    engine = dict(p for k, _, sig in COUNTERPARTS
+                  if k == ("inference/engine.py", "ScoringEngine")
+                  for p in sig)
+    assert engine["transfer_uint8"] == "True"
+    assert engine["max_in_flight"] == "2"
 
 
 # ── the scripts tier ─────────────────────────────────────────────────────
@@ -256,3 +545,72 @@ def test_scripts_left_are_the_roadmap_list():
         left = left[left.index("Left, in order"):]
         named = set(re.findall(r"`(\w+)(?:\.py|\.sh)?`", left))
         assert not named & (set(DRIVING) | set(LAUNCHERS)), named
+
+
+# The scripts' flags: ``add_argument``'s first name and its default, and
+# ``--device`` where a tool calls ``common.add_device_argument``.
+DEVICE_FLAG = Idiom("the tool does device work: --device, cuda:0 by "
+                    "default, 'cpu' runs the twins (tools/common.py)",
+                    add=("--device",))
+FLAG_IDIOMS = {
+    **{name: DEVICE_FLAG for name in (
+        "bench_coalesce_r5", "bench_int8", "bench_predictor", "bench_serving",
+        "check_setup", "debug_clips", "eval_cross_tier", "eval_multiface",
+        "eval_robustness_grid", "eval_shared_encoding", "eval_unseen_fakes",
+        "filter_corrupt_videos", "fit_calibrator",
+        "measure_articulation_bands", "probe_link_engine", "profile_forward",
+        "profile_host", "run_grid_eval", "run_synthetic_eval",
+        "validate_pipeline")},
+    **{name: Idiom("the JAX script's --cpu is --device cpu",
+                   drop=("--cpu",), add=("--device",))
+       for name in ("bench_fold", "bench_train_scaling", "diagnose_int8",
+                    "train_lip_localizer")},
+    "precompute_training_tensors":
+        Idiom("the JAX script's --platform (cpu or auto) is --device",
+              drop=("--platform",), add=("--device",)),
+    "eval_shared_encoding_flips":
+        Idiom(DEVICE_FLAG.reason + "; the report goes to a file of its own "
+              "beside the JAX script's, which stays as the JAX run wrote it",
+              add=("--device",),
+              defaults=(("--out", "REPO / 'docs' / 'eval' / "
+                                  "'shared_encoding_flips_torch.json'"),)),
+}
+
+
+def _flags(path: Path) -> Signature:
+    """``(flag, default source)`` of every ``add_argument`` (its first
+    name), sorted, with ``--device`` for ``add_device_argument``."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if not isinstance(node, ast.Call):
+            continue
+        fn = node.func
+        called = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+            fn, "id", None)
+        if called == "add_argument":
+            default = {k.arg: ast.unparse(k.value)
+                       for k in node.keywords}.get("default")
+            out.append((node.args[0].value, default))
+        elif called == "add_device_argument":
+            out.append(("--device", "'cuda:0'"))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("script", DRIVING)
+def test_every_tool_takes_the_script_flags(script):
+    """The tool's flags and defaults equal the JAX script's, after the
+    idiom's differences."""
+    want, got = _translate(_flags(SCRIPTS / f"{script}.py"),
+                           _flags(TOOLS / f"{script}.py"),
+                           FLAG_IDIOMS.get(script))
+    assert sorted(want) == got
+
+
+@pytest.mark.parametrize("script", sorted(FLAG_IDIOMS))
+def test_every_flag_idiom_is_current(script):
+    idiom = FLAG_IDIOMS[script]
+    jax_flags = dict(_flags(SCRIPTS / f"{script}.py"))
+    port_flags = dict(_flags(TOOLS / f"{script}.py"))
+    assert jax_flags != port_flags, f"{script}: nothing differs"
+    assert set(idiom.drop) <= set(jax_flags) and not idiom.rename
+    assert set(idiom.add) <= set(port_flags) - set(jax_flags)

@@ -210,3 +210,87 @@ def test_synthetic_track_windows_follow_the_request_path():
         np.testing.assert_array_equal(visual[i].numpy(), crops[s : s + 8])
         np.testing.assert_array_equal(
             audio[i, ..., 0].numpy(), align_audio_chunk(mel, s, 20, 32, 8))
+
+
+def test_transfer_uint8_false_matches_jax(engines):
+    """``transfer_uint8=False``: float windows off the uint8 grid reach the
+    forward unrounded, as the JAX engine's ``_fwd`` takes them (logits
+    atol 1e-4), and score otherwise than the rounded default, which shows
+    that the flag acts. uint8 windows still take the /255 path."""
+    port, jax_engine, cfg = engines
+    _, _, variables, _ = seeded_pair(5)
+    raw = ScoringEngine(variables, cfg, device="cpu", use_bfloat16=False,
+                        transfer_uint8=False)
+    assert not raw.transfer_uint8 and port.transfer_uint8
+    rng = np.random.RandomState(15)
+    vis = rng.rand(3, 8, 32, 32, 3).astype(np.float32)
+    aud = (rng.rand(3, 80, 32) * 80 - 80).astype(np.float32)
+    got = raw.score_logits(vis, aud)
+    jax_engine.transfer_uint8 = False
+    try:
+        with jax.default_matmul_precision("highest"):
+            want = jax_engine.score_logits(vis, aud)
+    finally:
+        jax_engine.transfer_uint8 = True
+    print(f"max |delta| score_logits transfer_uint8=False: "
+          f"{np.abs(got - want).max():.3g}")
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    rounded = port.score_logits(vis, aud)
+    print(f"max |unrounded - rounded|: {np.abs(got - rounded).max():.3g}")
+    assert np.abs(got - rounded).max() > 1e-6
+    u8 = (vis * 255).astype(np.uint8)
+    np.testing.assert_array_equal(raw.score_logits(u8, aud),
+                                  port.score_logits(u8, aud))
+
+
+class _Spy:
+    """Stands for a group's device logits and logs when it is read."""
+
+    def __init__(self, logits, log):
+        self.logits, self.log = logits, log
+
+    def __getitem__(self, item):
+        self.log.append("read")
+        return self.logits[item]
+
+
+@pytest.mark.parametrize("track", [False, True], ids=["windows", "track"])
+@pytest.mark.parametrize("in_flight", [1, 2, 3])
+def test_max_in_flight_streams_groups(engines, in_flight, track):
+    """Over more windows than ``max_batch`` holds, ``max_in_flight`` groups
+    are dispatched before the first is read back (as the JAX engine keeps
+    them), and the logits are the same for 1, 2 and 3 and in order."""
+    _, _, cfg = engines
+    _, _, variables, _ = seeded_pair(5)
+    eng = ScoringEngine(variables, cfg, device="cpu", use_bfloat16=False,
+                        max_batch=2, max_in_flight=in_flight)
+    rng = np.random.RandomState(16)
+    crops = (rng.rand(24, 32, 32, 3) * 255).astype(np.uint8)
+    starts = [0, 2, 4, 7, 9, 12, 16]  # 4 groups, the last ragged
+    aud = (rng.rand(7, 80, 32) * 80 - 80).astype(np.float32)
+    log = []
+    name = "dispatch_track_logits" if track else "dispatch_logits"
+    real = getattr(eng, name)
+
+    def spy(*args):
+        log.append("dispatch")
+        return _Spy(real(*args), log)
+
+    setattr(eng, name, spy)
+    if track:
+        got = eng.score_track_logits(crops, starts, aud)
+    else:
+        got = eng.score_logits(np.stack([crops[s : s + 8] for s in starts]),
+                               aud)
+    assert log[:min(in_flight, 4)] == ["dispatch"] * min(in_flight, 4)
+    assert log.count("dispatch") == log.count("read") == 4
+    pending = 0
+    for event in log:
+        pending += 1 if event == "dispatch" else -1
+        assert 0 <= pending <= in_flight
+    one = ScoringEngine(variables, cfg, device="cpu", use_bfloat16=False,
+                        max_batch=2, max_in_flight=1)
+    want = (one.score_track_logits(crops, starts, aud) if track
+            else one.score_logits(
+                np.stack([crops[s : s + 8] for s in starts]), aud))
+    np.testing.assert_array_equal(got, want)

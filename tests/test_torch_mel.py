@@ -141,3 +141,167 @@ def test_frames_per_block_reaches_every_sm(n, f):
     t = k1.n_frames_for(n)
     assert k1.frames_per_block(1, t, 132) == f
     assert -(-t // f) >= 132
+
+
+# ── every parameter set the Pallas kernel takes ──────────────────────────
+#
+# (sr, n_fft, hop, n_mels) and the other arguments, as the JAX package's
+# log_mel_spectrogram_pallas takes them: 22.05 kHz at 128 mels and the
+# widest n_fft whose bins fit its 256 lanes, 8 kHz, uncentred frames, a
+# filterbank with 13 empty bands, an odd n_fft and no floor.
+PARAM_SETS = {
+    "defaults": {},
+    "22050_510_128_128": dict(sr=22050, n_fft=510, hop_length=128,
+                              n_mels=128),
+    "8000_256_80_40": dict(sr=8000, n_fft=256, hop_length=80, n_mels=40),
+    "16000_320_160_64_uncentred": dict(sr=16000, n_fft=320, hop_length=160,
+                                       n_mels=64, center=False),
+    "16000_256_160_128_empty_bands": dict(sr=16000, n_fft=256,
+                                          hop_length=160, n_mels=128),
+    "odd_n_fft_401": dict(n_fft=401),
+    "no_floor": dict(top_db=None),
+}
+
+
+def _full(params):
+    """The set with every size named, win_length = n_fft as the kernel
+    takes it."""
+    full = {"sr": 16000, "n_fft": 400, "hop_length": 160, "n_mels": 80,
+            **params}
+    return {**full, "win_length": full["n_fft"]}
+
+
+@pytest.mark.parametrize("name", sorted(PARAM_SETS))
+def test_kernel_twin_matches_pallas_and_xla_at_every_set(name):
+    """The wrapper (the twin on the CPU) against the Pallas kernel in
+    interpret mode and the JAX package's XLA chain, < 1e-3 dB."""
+    params = _full(PARAM_SETS[name])
+    y = _speechish(12000, 5)
+    before = k1.launches
+    got = k1.log_mel_spectrogram_fused(torch.from_numpy(y), **params).numpy()
+    pallas = np.asarray(log_mel_spectrogram_pallas(jnp.asarray(y),
+                                                   interpret=True, **params))
+    xla = np.asarray(jax_log_mel(jnp.asarray(y), **params))
+    assert got.shape == pallas.shape == xla.shape
+    assert got.shape[0] == params["n_mels"]
+    d_pallas, d_xla = np.abs(got - pallas).max(), np.abs(got - xla).max()
+    print(f"max |delta| K1 twin {name}: vs pallas {d_pallas:.3g} dB, "
+          f"vs XLA {d_xla:.3g} dB")
+    assert d_pallas < TOL_DB and d_xla < TOL_DB
+    assert k1.launches == before
+
+
+PREPROCESS_SETS = sorted(k for k, v in PARAM_SETS.items()
+                         if not {"center", "top_db"} & set(v))
+
+
+@pytest.mark.parametrize("name", PREPROCESS_SETS)
+def test_preprocess_audio_pcm_matches_jax_at_every_set(name):
+    """The JAX signature (sr, n_mels, hop_length, win_length; n_fft =
+    win_length), its bucket and its frame slice, through K1's route."""
+    p = _full(PARAM_SETS[name])
+    kw = {k: p[k] for k in ("sr", "n_mels", "hop_length", "win_length")}
+    y = _speechish(23456, 6)
+    got = preprocess_audio_pcm(y, target_frames=150, device="cpu", **kw)
+    want = jax_preprocess(y, target_frames=150, **kw)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    print(f"max |delta| preprocess {name}: {np.abs(got - want).max():.3g} dB")
+    assert np.abs(got - want).max() < TOL_DB
+
+
+@pytest.mark.parametrize("n_fft,win_length,n_mels,limit", [
+    (512, 512, 80, "n_fft"), (400, 400, 160, "n_mels"),
+    (400, 320, 80, "win_length")])
+def test_out_of_range_sets_raise_in_both_kernels(n_fft, win_length, n_mels,
+                                                 limit):
+    """n_fft past 511 (257 bins), more than 128 mels, win_length != n_fft:
+    the Pallas kernel raises, and the port's wrapper raises ValueError
+    naming the limit before any launch."""
+    y = _speechish(16384, 7)
+    kw = dict(n_fft=n_fft, win_length=win_length, n_mels=n_mels)
+    with pytest.raises((ValueError, AssertionError)):
+        log_mel_spectrogram_pallas(jnp.asarray(y), interpret=True, **kw)
+    with pytest.raises(ValueError, match=limit):
+        k1.log_mel_spectrogram_fused(torch.from_numpy(y), **kw)
+    with pytest.raises(ValueError, match=limit):
+        k1.log_mel_db(torch.from_numpy(y)[None], **kw)
+
+
+def _failing_k1(*args, **kwargs):
+    raise RuntimeError("log_mel kernel launch failed: cudaError 700")
+
+
+@pytest.mark.parametrize("win_length,n_mels", [(1024, 80), (400, 160)])
+def test_preprocess_outside_k1_takes_the_chain(win_length, n_mels,
+                                                monkeypatch):
+    """Outside K1's range the preprocessing takes ops/mel.py's chain,
+    chosen from the parameters alone (a raising K1 is never called), and
+    matches the JAX package's default chain."""
+    from lipsync_tpu_torch.preprocessing import audio as audio_mod
+
+    monkeypatch.setattr(audio_mod, "log_mel_spectrogram_fused", _failing_k1)
+    y = _speechish(20000, 8)
+    got = preprocess_audio_pcm(y, win_length=win_length, n_mels=n_mels,
+                               device="cpu")
+    want = jax_preprocess(y, win_length=win_length, n_mels=n_mels)
+    assert got.shape == want.shape == (n_mels, 1 + 20000 // 160)
+    print(f"max |delta| preprocess chain win={win_length} mels={n_mels}: "
+          f"{np.abs(got - want).max():.3g} dB")
+    assert np.abs(got - want).max() < TOL_DB
+
+
+def test_a_failing_k1_inside_its_range_raises(monkeypatch):
+    """Inside the range a K1 failure ends the call; it never falls over to
+    the chain."""
+    from lipsync_tpu_torch.preprocessing import audio as audio_mod
+
+    monkeypatch.setattr(audio_mod, "log_mel_spectrogram_fused", _failing_k1)
+    with pytest.raises(RuntimeError, match="log_mel kernel launch failed"):
+        preprocess_audio_pcm(_speechish(16000, 9), win_length=511,
+                             n_mels=128, device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(set(PARAM_SETS) - {"no_floor"}))
+def test_kernel_tables_hold_at_every_set(name):
+    """At each set the kernel's twiddles rebuild the twin's bases to 1e-7
+    and each band's support covers its nonzero weights; an empty band
+    (none at most sets, 13 at 16 kHz, n_fft 256, 128 mels) has support
+    (0, -1) and gives 10 log10(1e-10) dB, as the Pallas kernel does."""
+    p = _full(PARAM_SETS[name])
+    sr, n_fft, n_mels = p["sr"], p["n_fft"], p["n_mels"]
+    wc, ws, fbt = k1._host_tables(sr, n_fft, n_mels)
+    win, cos, sin, fbt_k, bands = k1._host_kernel_tables(sr, n_fft, n_mels)
+    n_bins = n_fft // 2 + 1
+    assert wc.shape == (n_fft, n_bins) and fbt.shape == (n_bins, n_mels)
+    idx = (np.arange(n_fft)[:, None] * np.arange(n_bins)[None, :]) % n_fft
+    assert np.abs(win[:, None] * cos[idx] - wc).max() <= 1e-7
+    assert np.abs(win[:, None] * sin[idx] - ws).max() <= 1e-7
+    np.testing.assert_array_equal(fbt_k, fbt)
+    empty = [m for m in range(n_mels) if not fbt[:, m].any()]
+    for m in range(n_mels):
+        nz = np.flatnonzero(fbt[:, m])
+        want = (0, -1) if nz.size == 0 else (nz[0], nz[-1])
+        assert tuple(bands[m]) == want
+    assert len(empty) == (13 if name.endswith("empty_bands") else 0)
+    if empty:
+        y = torch.from_numpy(_speechish(8000, 10))[None]
+        db = k1.log_mel_db(y, sr=sr, n_fft=n_fft, win_length=n_fft,
+                           hop_length=p["hop_length"], n_mels=n_mels)
+        np.testing.assert_allclose(db[0, empty].numpy(), -100.0, atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("n,n_fft,hop,center", [
+    (16000, 400, 160, True), (16000, 401, 160, True),
+    (12000, 320, 160, False), (12000, 510, 128, True)])
+def test_frame_count_follows_the_jax_framing(n, n_fft, hop, center):
+    """1 + (n + 2 pad - n_fft) // hop, pad = n_fft // 2 when centred: the
+    twin's output length and the JAX chain's."""
+    y = _speechish(n, 11)
+    t = k1.n_frames_for(n, n_fft, hop, center)
+    want = jax_log_mel(jnp.asarray(y), n_fft=n_fft, win_length=n_fft,
+                       hop_length=hop, center=center).shape[1]
+    got = k1.log_mel_db(torch.from_numpy(y)[None], n_fft=n_fft,
+                        win_length=n_fft, hop_length=hop,
+                        center=center).shape[2]
+    assert t == want == got
