@@ -30,7 +30,8 @@ each printed as one JSON line:
    3) and the trainers' validation batches (6 and 3, 32, 96, 96, 3), and at
    an odd,
    non-square (2, 4, 15, 10, 3) that leaves partial
-   output tiles, and the serving phase's buckets (2 / 4 / 8, 32, 96, 96,
+   output tiles, the serving phase's buckets (2 / 4 / 8, 32, 96, 96, 3),
+   the benchmark's batch of 1024 and the dry run's (2 and 4, 4, 32, 32,
    3): fp32 atol 2e-5, bf16 within
    |d| <= 8e-3 |fp32| + 1e-5 of the fp32 result on the same input; kernel,
    twin and bound times in both dtypes;
@@ -53,7 +54,14 @@ each printed as one JSON line:
    against its old pair in turns (per call and device time) beside its
    bound and its twin, and the whole ``layers.int8_conv`` against the
    parent's torch chain around K3's int32 entry (bit-equal; device and
-   per-call times in turns);
+   per-call times in turns); and unequal ``(lo, hi)`` padding pairs
+   through ``layers.int8_conv`` (K4 on the input, zeros padded into the
+   int8 activation, K3 with none), bit-equal to the twins and to the
+   input padded explicitly;
+4c. the layer forms that the JAX package's blocks take: ``ConvBNAct``
+   and ``ResidualBlockND`` with ``lowering="shift_matmul"`` and
+   ``ConvBNAct`` and ``max_pool_same`` at unequal padding pairs, on the
+   card against the CPU (float64 within 1e-6; fp32 within 1e-5);
 5. three requests at the full width of ``ModelConfig()``, each crop ->
    log-mel (K1) -> align -> engine (K2 inside): R1 32 frames of 360x640 +
    2.2 s of PCM through ``score_probs``; R2 150 frames (10 s at 15 fps, 15
@@ -222,6 +230,25 @@ each printed as one JSON line:
    Every tool's seconds, windows/s of the engine-bound ones, and the
    probe's link MB/s and windows/s.
 
+13b. the benchmark driver (``bench``): ``tools/bench.py::run`` in this
+   process at the root ``bench.py``'s card sizes (the model path at 1024
+   windows, the engine under its pinned 4 x 128-window payload, the track
+   and shared paths, the train step at batch 32); its JSON dict as a phase
+   line (its keys the root driver's less ``note``, every number finite,
+   ``platform`` "cuda"), then each path's seconds, peak memory and
+   launches (K2 on the model, engine, track and shared paths, none in the
+   train step). It runs before phase 14, whose ``bench_train_scaling``
+   tries a batch of 1024 that does not fit; cuDNN plans picked under that
+   memory pressure appear to stay for the rest of the process: run after
+   phase 14, the model path at 1024 windows read 1,476 ms a batch against
+   907 in a fresh process (one H100 80GB HBM3 at 700 W).
+
+13c. the entry points (``graft``): ``tools/graft_entry.py``'s ``entry()``
+   forward (fp32, batch 8) on its example inputs and on a seeded batch,
+   within 1e-3 of the twins' forward; ``dryrun_multichip(2)``: one train
+   step on two gloo ranks on the CPU (one card), its serving paths over
+   ``[cuda:0, cuda:0]`` within 2e-5 of one device (1e-4 shared).
+
 14. the rest of the scripts tier (``scripts``): ``smoke_interference.sh``
    at tiny sizes (4 / 2 clips per class, 1 epoch, 1 scene per kind, 2 per
    unseen construction; inside it ``train_interference_r4.sh`` at 2 / 2
@@ -302,9 +329,12 @@ SIMT, TENSOR, INT8 = "fp32 SIMT", "TF32 tensor cores", "int8 tensor cores"
 # warmup (a two-window track), concurrent requests coalesced into buckets
 # of 2, 4 and 8 one-window requests, phase 10's shards (a bucket split
 # over two: R3's 128 windows in halves of 64, R2's 16 in halves of 8, a
-# ragged bucket of 8 in halves of 4), and phase 13's link probe (groups of
-# 32 windows).
-K2_EXTRA_BATCHES = (2, 4, 8, 32, 64)
+# ragged bucket of 8 in halves of 4), phase 13's link probe (groups of 32
+# windows) and phase 13b's model path (1024 windows, the benchmark's batch).
+K2_EXTRA_BATCHES = (2, 4, 8, 32, 64, 1024)
+# K2 inputs of phase 13c's dry run (4 frames of 32 x 32): a bucket of 4
+# windows on one device and in its halves on two shards.
+GRAFT_K2_SHAPES = ((2, 4, 32, 32, 3), (4, 4, 32, 32, 3))
 # K1 inputs beyond phase 3's timed buckets: phase 13's shared-encoding
 # tracks (120 frames, 8 s of PCM in a bucket of 131072 samples).
 K1_EXTRA_SAMPLES = (1 << 17,)
@@ -2117,11 +2147,54 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
                                         - launched[1]]}
             del got, want
         del xf, wf
+    # Unequal (lo, hi) padding pairs through layers.int8_conv: K4 on x, the
+    # int8 activation padded with zeros, K3 with no padding; bit-equal to
+    # the same call with the twins in the kernels' places, and to x padded
+    # explicitly with zeros through K4 and K3 (a zero quantizes to 0).
+    c6_convs = {
+        "unequal_3d": ((16, 8, 12, 12, 64), (64, 3, 3, 3, 64), (1, 2, 2),
+                       UNEQUAL_PAD),
+        "unequal_stem": ((4, 8, 21, 19, 3), (16, 3, 7, 7, 3), (1, 2, 2),
+                         ((1, 1), (3, 2), (2, 3))),
+        "unequal_2d": ((16, 17, 33, 32), (32, 3, 3, 32), (1, 2),
+                       ((2, 0), (0, 1))),
+    }
+    c6 = {}
+    for name, (x_shape, w_shape, stride, padding) in c6_convs.items():
+        xf = activations(x_shape)["channels_last"]
+        wf = randn(w_shape[0], w_shape[-1], *w_shape[1:-1], scale=0.05)
+        bias = randn(w_shape[0])
+        flat = tuple(v for pair in reversed(padding) for v in pair)
+        for dt in dtypes:
+            before = k3.launches, k4.launches
+            got = layers_mod.int8_conv(xf.to(dt), wf, bias, stride, padding)
+            torch.cuda.synchronize()
+            launched = [k3.launches - before[0], k4.launches - before[1]]
+            padded = layers_mod.int8_conv(F.pad(xf.to(dt), flat), wf, bias,
+                                          stride, (0,) * len(padding))
+            before = k3.launches, k4.launches
+            with plain_int8():
+                want = layers_mod.int8_conv(xf.to(dt), wf, bias, stride,
+                                            padding)
+            torch.cuda.synchronize()
+            c6[f"{name} {dt}"] = {
+                "x": list(x_shape), "w": list(w_shape),
+                "padding": [list(p) for p in padding],
+                "shape": list(got.shape),
+                "equal_twins": bool(torch.equal(bits(got), bits(want))),
+                "equal_padded_input": bool(torch.equal(bits(got),
+                                                       bits(padded))),
+                "launches_k3_k4": launched,
+                "twin_launches_k3_k4": [k3.launches - before[0],
+                                        k4.launches - before[1]]}
+            del got, want, padded
+        del xf, wf
     torch.cuda.empty_cache()
     for b in (1, 8, 16, 128, 0, "diag"):
         emit({"phase": "k3_int8_conv", "batch": b or "odd",
               "rows": [r for (_, bb), r in rows.items() if bb == b]})
     emit({"phase": "k3_int8_widths", "convs": c1})
+    emit({"phase": "k3_int8_unequal_padding", "convs": c6})
     # K4's device time over one int8 forward at B = 16: each geometry's
     # time times its convolutions per forward.
     k4_forward = {
@@ -2159,6 +2232,12 @@ def k3_phase(dev, cfg, weights, time_ms, bound_ms, checked,
               and r["launches_k3_k4"][1] == 1
               and r["twin_launches_k3_k4"] == [0, 0],
               f"int8 conv at a width K3 refuses as it is, {name}: {r}")
+    for name, r in c6.items():
+        check(r["equal_twins"] and r["equal_padded_input"]
+              and r["launches_k3_k4"][0] >= 1
+              and r["launches_k3_k4"][1] == 1
+              and r["twin_launches_k3_k4"] == [0, 0],
+              f"int8 conv at unequal padding, {name}: {r}")
     return rows, summary
 
 
@@ -4710,6 +4789,281 @@ def scripts_phase(dev, cfg, smi, weights, record) -> dict:
         "child_seen": child_seen}
 
 
+# The layer forms of phase 4c: the JAX package's (lo, hi) padding pairs,
+# unequal, and its shift_matmul lowering.
+UNEQUAL_PAD = ((0, 1), (2, 1), (1, 0))
+
+
+def layer_forms_phase(dev) -> dict:
+    """Phase 4c: the layer forms that the JAX package's building blocks
+    take, on the card against the same modules on the CPU (seeded weights):
+    ``ConvBNAct`` with ``lowering="shift_matmul"`` (the plain convolution
+    at stride 1) and with unequal ``(lo, hi)`` padding pairs (padded
+    explicitly, then a convolution without padding), ``ResidualBlockND``
+    with the lowering (3-d with the 1x1 shortcut, 2-d without), and
+    ``max_pool_same`` at unequal pairs and past half its window (padded
+    with -inf). In float64 within 1e-6: the same function; in fp32 (TF32
+    off) within 1e-5, the JAX package's bound for the shift_matmul
+    lowering: cuDNN and the CPU sum a convolution's products in other
+    orders, a few fp32 steps apart at outputs of a few units."""
+    import torch
+
+    from lipsync_tpu_torch.models import layers as layers_mod
+    from lipsync_tpu_torch.models import seeded_state_dict
+
+    gen = torch.Generator().manual_seed(SEED)
+    modules = {
+        "conv_shift_matmul": (lambda: layers_mod.ConvBNAct(
+            8, 16, (3, 3, 3), (1, 1, 1), (1, 1, 1), bias=True,
+            lowering="shift_matmul"), (2, 8, 8, 12, 12)),
+        "conv_unequal_pairs": (lambda: layers_mod.ConvBNAct(
+            4, 16, (3, 3, 3), (1, 2, 2), UNEQUAL_PAD, bias=True),
+            (2, 4, 6, 13, 11)),
+        "conv_unequal_pairs_shift_matmul": (lambda: layers_mod.ConvBNAct(
+            4, 16, (3, 3, 3), (1, 1, 1), UNEQUAL_PAD, bias=True,
+            lowering="shift_matmul"), (2, 4, 6, 13, 11)),
+        "residual_shift_matmul": (lambda: layers_mod.ResidualBlockND(
+            8, 16, (3, 3, 3), (1, 1, 1), lowering="shift_matmul"),
+            (2, 8, 6, 6, 6)),
+        "residual_2d_shift_matmul": (lambda: layers_mod.ResidualBlockND(
+            8, 8, (3, 3), (1, 1), lowering="shift_matmul"), (2, 8, 20, 16)),
+    }
+    pools = {"pool_unequal_3d": ((2, 3, 5, 9, 8), (2, 3, 3), (1, 2, 2),
+                                 UNEQUAL_PAD),
+             "pool_unequal_2d": ((2, 4, 9, 10), (3, 3), (2, 2),
+                                 ((0, 2), (1, 0))),
+             "pool_past_half_window": ((2, 3, 7, 7), (3, 3), (2, 2),
+                                       ((2, 2), (1, 1)))}
+    rows = {}
+    for name, (make, shape) in modules.items():
+        module = make().eval()
+        module.load_state_dict(seeded_state_dict(module, SEED))
+        x = torch.randn(*shape, generator=gen)
+        row = {"x": list(shape)}
+        for dt in (torch.float32, torch.float64):
+            module.to("cpu", dt)
+            with torch.no_grad():
+                want = module(x.to(dt))
+                got = module.to(dev)(x.to(dev, dt)).cpu()
+            row["out"] = list(got.shape)
+            row[f"max_abs_vs_cpu_{str(dt)[6:]}"] = float(
+                (got - want).abs().max())
+        rows[name] = row
+    for name, (shape, window, strides, padding) in pools.items():
+        x = torch.randn(*shape, generator=gen)
+        row = {"x": list(shape)}
+        for dt in (torch.float32, torch.float64):
+            want = layers_mod.max_pool_same(x.to(dt), window, strides,
+                                            padding)
+            got = layers_mod.max_pool_same(x.to(dev, dt), window, strides,
+                                           padding).cpu()
+            row["out"] = list(got.shape)
+            row[f"max_abs_vs_cpu_{str(dt)[6:]}"] = float(
+                (got - want).abs().max())
+        rows[name] = row
+    emit({"phase": "layer_forms", "rows": rows})
+    for name, r in rows.items():
+        check(r["max_abs_vs_cpu_float64"] <= 1e-6
+              and r["max_abs_vs_cpu_float32"] <= 1e-5,
+              f"layer form {name}: card vs CPU {r}")
+    return rows
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count set to 0."""
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+
+    k1.launches = k2.launches = k3.launches = k4.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel's launch count, by the name of the kernels line."""
+    from lipsync_tpu_torch.ops.kernels import hf_stem as k2
+    from lipsync_tpu_torch.ops.kernels import int8_conv as k3
+    from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+    from lipsync_tpu_torch.ops.kernels import mel as k1
+
+    return {"log_mel": k1.launches, "hf_stem": k2.launches,
+            "int8_conv": k3.launches, "int8_quant": k4.launches}
+
+
+def root_bench_keys() -> set:
+    """The keys of the JSON line that the repo's root ``bench.py`` (the
+    JAX driver) prints, read with ``ast``: the dict literal with a
+    ``"metric"`` key and the one nested in it."""
+    import ast
+
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict) and any(
+                isinstance(k, ast.Constant) and k.value == "metric"
+                for k in node.keys):
+            return {k.value for sub in ast.walk(node)
+                    if isinstance(sub, ast.Dict) for k in sub.keys
+                    if isinstance(k, ast.Constant)}
+    raise RuntimeError("no printed dict in bench.py")
+
+
+def smi_query(query: str, fields: str) -> list:
+    """``nvidia-smi --query-<query>=<fields>`` as lists of strings."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-{query}={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return [[v.strip() for v in ln.split(",")]
+            for ln in out.strip().splitlines() if ln.strip()]
+
+
+def bench_phase(dev, record) -> dict:
+    """Phase 13b: the port's benchmark driver, ``tools/bench.py::run``, in
+    this process at the root driver's card sizes (``bench.CARD``: the model
+    path at 1024 windows, the engine under its pinned 4 x 128-window
+    payload, the track and shared paths, the train step at batch 32). Its
+    dict is this phase's line; a second line gives the seconds, peak
+    memory and launches of each path (read at each of ``run``'s progress
+    marks, with the allocator's retries and the card's clock, power and
+    temperature there), and what shares the card as the phase starts, after
+    a garbage collection (free memory, the processes on it, this process's
+    threads). Checks: the keys
+    are the root driver's less ``note``, every number finite, ``platform``
+    "cuda"; K2 launched on the model, engine, track and shared paths and by
+    no train step; no other kernel launched."""
+    import gc
+    import math
+    import threading
+
+    import torch
+
+    from lipsync_tpu_torch.models import ModelConfig
+    from lipsync_tpu_torch.tools import bench
+
+    marks = []
+
+    def progress(msg):
+        torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats()
+        marks.append((msg, time.perf_counter(), counts(),
+                      torch.cuda.max_memory_allocated() / 1e9,
+                      {k: stats.get(k, 0) for k in ("num_alloc_retries",
+                                                    "num_ooms")},
+                      smi_query("gpu", "clocks.sm,power.draw,"
+                                       "temperature.gpu")[0]))
+        torch.cuda.reset_peak_memory_stats()
+        bench._progress(msg)
+
+    before_gc = torch.cuda.memory_allocated() / 1e9
+    gc.collect()  # cycles left by earlier phases that hold device tensors
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    sharing = {"allocated_gb_before_gc": before_gc,
+               "free_gb": free / 1e9, "total_gb": total / 1e9,
+               "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+               "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+               "compute_apps": smi_query("compute-apps",
+                                         "pid,used_memory"),
+               "threads": sorted(t.name for t in threading.enumerate())}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with record():
+        out = bench.run(ModelConfig(), dev, bench.CARD, progress=progress)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    emit({"phase": "bench", **out})
+    paths = {}
+    for (name, t_a, c_a, _, r_a, _), (_, t_b, c_b, peak, r_b, smi) in zip(
+            marks, marks[1:]):
+        paths[name] = {"seconds": t_b - t_a, "peak_gb": peak,
+                       "launches": {k: c_b[k] - c_a[k] for k in c_a},
+                       "allocator": {k: r_b[k] - r_a[k] for k in r_a},
+                       "sm_mhz_w_c_at_end": smi}
+    emit({"phase": "bench_paths", "seconds": seconds, "paths": paths,
+          "launches": launches, "sharing_at_start": sharing})
+    check(set(out) == root_bench_keys() - {"note"},
+          f"bench keys differ from the root driver's: {sorted(out)}")
+    bad = [k for k, v in out.items() if isinstance(v, (int, float))
+           and not math.isfinite(v)]
+    check(not bad, f"bench: non-finite {bad}")
+    check(out["platform"] == "cuda" and out["dtype"] == "bfloat16"
+          and out["model_batch"] == bench.CARD.model_batch
+          and out["engine_batch"] == 128,
+          f"bench: {out['platform']} {out['dtype']} {out['model_batch']}")
+    for name in ("single-window path", "batch path", "engine path",
+                 "track gather path", "track shared-encoding path"):
+        check(paths[name]["launches"]["hf_stem"] >= 1,
+              f"bench {name} launched no K2: {paths[name]}")
+    check(paths["train step"]["launches"]["hf_stem"] == 0,
+          f"a bench train step launched K2: {paths['train step']}")
+    check(launches["log_mel"] == launches["int8_conv"]
+          == launches["int8_quant"] == 0, f"bench launches: {launches}")
+    return launches
+
+
+def graft_phase(dev, plain_kernels, record) -> dict:
+    """Phase 13c: the port's entry points, ``tools/graft_entry.py``.
+    ``entry()``'s fp32 forward of ``ModelConfig()`` at batch 8 on its
+    example (zero) inputs and on a seeded batch of the same shapes, each
+    within 1e-3 of the same forward with the twins in the kernels' places;
+    then ``dryrun_multichip(2)``: its train step on two gloo ranks on the
+    CPU (one card: NCCL refuses two ranks on it), and its serving paths
+    over ``[cuda:0, cuda:0]`` within 2e-5 of one device (ragged
+    ``score_logits`` and ``dispatch_track_logits``) and 1e-4 (shared
+    encoding). K2 launched by both; no other kernel."""
+    import numpy as np
+    import torch
+
+    from lipsync_tpu_torch.tools import graft_entry
+
+    fn, (visual, audio) = graft_entry.entry()
+    rng = np.random.RandomState(SEED)
+    seeded = (torch.from_numpy(rng.rand(*visual.shape).astype(np.float32))
+              .to(dev),
+              torch.from_numpy((rng.rand(*audio.shape) * 80 - 80)
+                               .astype(np.float32)).to(dev))
+    zero_counts()
+    t0 = time.perf_counter()
+    with record():
+        logits = [fn(visual, audio), fn(*seeded)]
+        torch.cuda.synchronize()
+        entry_launches = counts()
+        report = graft_entry.dryrun_multichip(2)
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    with plain_kernels():
+        plain = [fn(visual, audio), fn(*seeded)]
+    check(counts() == launches, "the twin forward launched a kernel")
+    entry_rows = {
+        name: {"shape": list(got.shape),
+               "finite": bool(torch.isfinite(got).all()),
+               "max_abs_vs_twins": float((got - want).abs().max())}
+        for name, got, want in zip(("example_inputs", "seeded_batch"),
+                                   logits, plain)}
+    out = {"entry": entry_rows, "entry_launches": entry_launches,
+           "dryrun_multichip": report, "launches": launches,
+           "seconds": seconds}
+    emit({"phase": "graft", **out})
+    for name, r in entry_rows.items():
+        check(r["shape"] == [8] and r["finite"]
+              and r["max_abs_vs_twins"] <= 1e-3, f"entry {name}: {r}")
+    step, serving = report["train_step"], report["serving"]
+    check(step["backend"] == "gloo" and step["step"] == 1
+          and np.isfinite(step["loss"]), f"dryrun train step: {step}")
+    check(serving["devices"] == ["cuda:0", "cuda:0"]
+          and serving["score_logits"]["max_abs_vs_one_device"] <= 2e-5
+          and serving["dispatch_track_logits"]["max_abs_vs_one_device"]
+          <= 2e-5
+          and serving["shared_score_track_logits"]["max_abs_vs_one_device"]
+          <= 1e-4, f"dryrun serving: {serving}")
+    check(entry_launches["hf_stem"] == 2
+          and launches["hf_stem"] > entry_launches["hf_stem"]
+          and launches["log_mel"] == launches["int8_conv"]
+          == launches["int8_quant"] == 0, f"graft launches: {launches}")
+    return launches
+
+
 def world_of_one(work: Path) -> None:
     """The child of phase 10 (c), started by ``torch.distributed.run`` with
     one process: join its NCCL group, then one host-fed and one
@@ -5084,22 +5438,28 @@ def main() -> None:
     def k2_errors(video):
         """fp32 max |kernel - twin| (atol 2e-5), and the share of the bf16
         tolerance |d| <= 8e-3 |fp32| + 1e-5 that the bf16 kernel uses
-        against the fp32 result on the same (bf16) input (<= 1 passes)."""
+        against the fp32 result on the same (bf16) input (<= 1 passes).
+        Each dtype's outputs are freed before the next (the bench's batch
+        of 1024 has 9.7 GB of fp32 output)."""
         v16 = video.to(torch.bfloat16)
         got = k2.hf_stem(video, *stem_args)
-        got16 = k2.hf_stem(v16, *stem_args).float()
         want = k2.hf_stem_plain(video, *stem_args)
+        err32 = float((got - want).abs().max())
+        del got, want
+        got16 = k2.hf_stem(v16, *stem_args).float()
         want16 = k2.hf_stem_plain(v16.float(), *stem_args)
         torch.cuda.synchronize()
-        err32 = float((got - want).abs().max())
-        err16 = (got16 - want16).abs()
+        err16 = (got16 - want16).abs_()
+        del got16
+        err16_max = float(err16.max())
         used16 = float((err16 / (8e-3 * want16.abs() + 1e-5)).max())
+        del err16, want16
         shape = tuple(video.shape)
         check(err32 <= 2e-5, f"K2 fp32 vs twin at {shape}: {err32}")
         check(used16 <= 1.0, f"K2 bf16 vs fp32 result at {shape}: "
                              f"tolerance used {used16}")
         checked["hf_stem"].update({shape_key(video), shape_key(v16)})
-        return err32, float(err16.max()), used16
+        return err32, err16_max, used16
 
     def k2_row(video):
         err32, err16_max, used16 = k2_errors(video)
@@ -5133,7 +5493,8 @@ def main() -> None:
     # buckets (phase 8).
     for shape in ((2, 4, 15, 10, 3), (4, 16, 96, 96, 3), (2, 16, 96, 96, 3),
                   (VAL_CLIPS, 32, 96, 96, 3), (TOOLS_VAL_CLIPS, 32, 96, 96, 3),
-                  *((b, 32, 96, 96, 3) for b in K2_EXTRA_BATCHES)):
+                  *((b, 32, 96, 96, 3) for b in K2_EXTRA_BATCHES),
+                  *GRAFT_K2_SHAPES):
         video = torch.rand(*shape, generator=gen).to(dev)
         err32, _, used16 = k2_errors(video)
         emit({"phase": "k2_hf_stem", "shape": list(shape),
@@ -5272,6 +5633,9 @@ def main() -> None:
     # ── 4b. K3 vs its twin at every int8 encoder convolution ──────────
     k3_rows, k3_summary = k3_phase(dev, cfg, seeded, time_ms, bound_ms,
                                    checked, plain_int8)
+
+    # ── 4c. the layer forms: shift_matmul, (lo, hi) padding pairs ─────
+    layer_forms_phase(dev)
 
     engines = {name: (ScoringEngine(w, cfg),  # bf16 on CUDA by default
                       ScoringEngine(w, cfg, use_bfloat16=False))
@@ -5413,6 +5777,15 @@ def main() -> None:
         dev, cfg, smi, weight_sets["bn_calibrated"],
         lambda: kernel_inputs(seen))
 
+    # ── 13b. the benchmark driver (before phase 14: see its docstring) ─
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(dev, lambda: kernel_inputs(seen))
+
+    # ── 13c. the entry points and the multi-device dry run ────────────
+    torch.cuda.empty_cache()
+    graft_launches = graft_phase(dev, plain_kernels,
+                                 lambda: kernel_inputs(seen))
+
     # ── 14. the scripts tier: launchers, profilers, benchmarks ─────────
     torch.cuda.empty_cache()
     scripts_launches = scripts_phase(dev, cfg, smi,
@@ -5470,6 +5843,8 @@ def main() -> None:
          "launches_scripts": scripts_launches["log_mel"],
          "launches_scripts_children":
              scripts_launches["children"]["log_mel"],
+         "launches_bench": bench_launches["log_mel"],
+         "launches_graft": graft_launches["log_mel"],
          "max_abs_err": m["max_abs_err_db"], "ms": m["kernel_ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "bound_basis": m["bound_basis"],
@@ -5505,6 +5880,8 @@ def main() -> None:
          "launches_scripts": scripts_launches["hf_stem"],
          "launches_scripts_children":
              scripts_launches["children"]["hf_stem"],
+         "launches_bench": bench_launches["hf_stem"],
+         "launches_graft": graft_launches["hf_stem"],
          # under the fold (one cuDNN conv in K2's place): checked to be 0
          "launches_fold": option_launches["hf_stem_fold"],
          "max_abs_err": k2m["max_abs_err"], "ms": k2m["kernel_ms"],
@@ -5526,6 +5903,8 @@ def main() -> None:
          "launches_scripts": scripts_launches["int8_conv"],
          "launches_scripts_children":
              scripts_launches["children"]["int8_conv"],
+         "launches_bench": bench_launches["int8_conv"],
+         "launches_graft": graft_launches["int8_conv"],
          "shape": {k: k3m[k] for k in ("x", "w", "stride", "padding",
                                        "main_loop")},
          # ms, plain_ms and library_ms per call from CUDA events on the
@@ -5560,6 +5939,8 @@ def main() -> None:
          "launches_scripts": scripts_launches["int8_quant"],
          "launches_scripts_children":
              scripts_launches["children"]["int8_quant"],
+         "launches_bench": bench_launches["int8_quant"],
+         "launches_graft": graft_launches["int8_quant"],
          # the single launch on K3's input above, fp32 channels-last; the
          # old absmax + quantize pair in turns with it under "pair_ms"
          "shape": [k3m["x"][0], k3m["x"][-1], *k3m["x"][1:-1]],

@@ -8,7 +8,11 @@ work on channels-first tensors (torch's NC[D]HW); the encoders permute from
 the package's channels-last layouts at their boundary. Every BatchNorm is
 :class:`BatchNorm`: eps 1e-5, momentum 0.1 (torch's convention, flax's
 0.9), and flax's running-variance rule. ``ConvBNAct(lowering="int8")`` runs
-its convolution through :func:`int8_conv` (K3) with the same parameters.
+its convolution through :func:`int8_conv` (K3) with the same parameters;
+``lowering="shift_matmul"`` (the JAX package's ``ShiftMatmulConv``, stride
+1 only) is the plain convolution. Padding is one int per spatial dim
+(torch's form) or a ``(lo, hi)`` pair per dim (JAX's); unequal pairs are
+padded explicitly (:func:`explicit_padding`).
 
 Data parallelism keeps the global batch's numbers (the JAX package's mesh
 runs one program over it): a BatchNorm given a process group normalises
@@ -22,7 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -212,6 +216,35 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+Padding = Sequence[Union[int, Tuple[int, int]]]
+
+
+def padding_pairs(padding: Padding) -> Tuple[Tuple[int, int], ...]:
+    """``padding`` per spatial dim as ``(lo, hi)`` pairs (one int ``p`` is
+    ``(p, p)``)."""
+    return tuple((int(p), int(p)) if isinstance(p, (int, np.integer))
+                 else (int(p[0]), int(p[1])) for p in padding)
+
+
+def explicit_padding(x: torch.Tensor, padding: Padding, value: float,
+                     window: Optional[Sequence[int]] = None,
+                     channels_last: bool = False
+                     ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """``(x, ints)`` for torch's symmetric padding: where it computes
+    ``padding`` (every pair equal, and for a pool of ``window`` at most
+    half of it), ``x`` as it is and the pairs' ints; otherwise ``x`` padded
+    with ``value`` over its spatial dims (those after the channels, or
+    before them with ``channels_last``) and zeros."""
+    pairs = padding_pairs(padding)
+    if all(lo == hi for lo, hi in pairs) and (window is None or all(
+            lo <= k // 2 for (lo, _), k in zip(pairs, window))):
+        return x, tuple(lo for lo, _ in pairs)
+    flat = tuple(v for pair in reversed(pairs) for v in pair)
+    if channels_last:
+        flat = (0, 0) + flat
+    return F.pad(x, flat, value=value), (0,) * len(pairs)
+
+
 # 1/127 rounded to float32, as the compiled JAX package multiplies by it
 # (``ops/kernels/int8_quant.py`` says why).
 _INV_127 = INV_127
@@ -222,7 +255,7 @@ def int8_conv(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor],
     stride: Sequence[int],
-    padding: Sequence[int],
+    padding: Padding,
 ) -> torch.Tensor:
     """Counterpart of the JAX package's ``layers.Int8Conv``: post-training
     dynamic quantization of one 2-d or 3-d convolution (channels-first
@@ -244,7 +277,10 @@ def int8_conv(
     channels-last result as a channels-first view.
 
     Every width that the JAX package computes runs (:func:`_k3_geometry`
-    says how a convolution that K3 refuses is reshaped, exactly)."""
+    says how a convolution that K3 refuses is reshaped, exactly), and
+    every padding: K3 pads symmetrically, so unequal ``(lo, hi)`` pairs pad
+    the int8 activation with zeros before it (a zero quantizes to 0, so
+    this is the convolution of the zero-padded ``x``, exactly)."""
     w32 = weight.float()
     w_scale = torch.clamp(
         w32.abs().amax(dim=tuple(range(1, w32.dim()))) * _INV_127,
@@ -270,6 +306,7 @@ def int8_conv(
             mesh_lib.all_max(absmax(x, core)) * _INV_127, min=1e-12)
         x_q = quantize(x, x_scale)
         scale = x_scale * w_scale
+    x_q, padding = explicit_padding(x_q, padding, 0, channels_last=True)
     groups, width = _k3_geometry(tuple(x_q.shape), tuple(w_q.shape),
                                  stride, padding)
     if groups == 1:
@@ -326,7 +363,11 @@ def _pad_channels(t: torch.Tensor, width: int) -> torch.Tensor:
 class ConvBNAct(nn.Sequential):
     """Conv -> BatchNorm -> ReLU (``act=False`` drops the ReLU), N-d by the
     rank of ``kernel_size``. ``lowering="int8"`` runs the convolution as
-    :func:`int8_conv` on the same parameters (inference only)."""
+    :func:`int8_conv` on the same parameters (inference only);
+    ``"shift_matmul"`` is the plain convolution, at stride 1 only, as the
+    JAX package's ``ShiftMatmulConv`` computes it. ``padding`` takes ints
+    or ``(lo, hi)`` pairs per dim; unequal pairs pad the input with zeros
+    before a convolution with none (:func:`explicit_padding`)."""
 
     def __init__(
         self,
@@ -334,31 +375,43 @@ class ConvBNAct(nn.Sequential):
         out_channels: int,
         kernel_size: Sequence[int],
         stride: Sequence[int],
-        padding: Sequence[int],
+        padding: Padding,
         bias: bool = False,
         act: bool = True,
         lowering: str = "conv",
     ):
-        if lowering not in ("conv", "int8"):
+        if lowering not in ("conv", "shift_matmul", "int8"):
             raise ValueError(f"unknown conv lowering {lowering!r}")
+        if lowering == "shift_matmul" and any(s != 1 for s in stride):
+            raise ValueError("shift_matmul lowering supports stride 1 only")
         nd = len(kernel_size)
+        pairs = padding_pairs(padding)
+        symmetric = all(lo == hi for lo, hi in pairs)
         layers = [
             _CONV[nd](in_channels, out_channels, tuple(kernel_size),
-                      stride=tuple(stride), padding=tuple(padding), bias=bias),
+                      stride=tuple(stride),
+                      padding=tuple(lo for lo, _ in pairs) if symmetric
+                      else 0, bias=bias),
             BatchNorm(out_channels),
         ]
         if act:
             layers.append(nn.ReLU())
         super().__init__(*layers)
         self.lowering = lowering
+        # Unequal pairs, which the convolution module (padding 0) leaves to
+        # forward; None where the module pads as torch does.
+        self.unequal_padding = None if symmetric else pairs
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.lowering == "conv":
+        conv = self[0]
+        if self.lowering != "int8":
+            if self.unequal_padding is not None:
+                x, _ = explicit_padding(x, self.unequal_padding, 0)
             return super().forward(x)
         if self.training:
             raise RuntimeError("the int8 lowering is for inference only")
-        conv = self[0]
-        x = int8_conv(x, conv.weight, conv.bias, conv.stride, conv.padding)
+        x = int8_conv(x, conv.weight, conv.bias, conv.stride,
+                      self.unequal_padding or conv.padding)
         for layer in list(self)[1:]:
             x = layer(x)
         return x
@@ -399,15 +452,15 @@ def max_pool_same(
     x: torch.Tensor,
     window: Sequence[int],
     strides: Sequence[int],
-    padding: Sequence[Tuple[int, int]],
+    padding: Padding,
 ) -> torch.Tensor:
     """Max pool over the spatial dims of a channels-first tensor, padding
-    with -inf (torch's MaxPool). ``padding`` is per spatial dim and must be
-    symmetric."""
-    if any(lo != hi for lo, hi in padding):
-        raise ValueError(f"asymmetric padding {padding} is not supported")
+    with -inf (torch's MaxPool). ``padding`` is an int or a ``(lo, hi)``
+    pair per spatial dim; what torch's pool cannot pad (unequal pairs, or
+    more than half the window) is padded with -inf first."""
     pool = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}[len(window)]
-    return pool(x, tuple(window), tuple(strides), tuple(p[0] for p in padding))
+    x, pad = explicit_padding(x, padding, float("-inf"), window)
+    return pool(x, tuple(window), tuple(strides), pad)
 
 
 class MultiHeadAttention(nn.Module):

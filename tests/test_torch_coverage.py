@@ -436,6 +436,94 @@ def test_the_repaired_gaps_are_no_idiom():
     assert engine["max_in_flight"] == "2"
 
 
+# ── the values a parameter takes ─────────────────────────────────────────
+#
+# The walk above holds names and defaults, not the values a parameter
+# accepts. Every string literal that a JAX module compares against (an
+# operand of ==, !=, in or not in, or an element of a tuple, list or set
+# there) must appear as a string in the port's module of the same path (K1
+# and K2 live under another), or stand in the table below with its reason:
+# a value the JAX package tests for is a value its callers may pass.
+
+PORT_MODULE = {m: t for (m, _), (t, _) in RENAMES.items() if m != t}
+TPU = ("a platform check for the TPU; the port takes the torch device it "
+       "is given (utils/device.py)")
+
+# (JAX module, literal) -> why the port's module need not test for it.
+STRING_IDIOMS = {
+    ("inference/engine.py", "tpu"):
+        TPU + ": bf16 where that device is CUDA",
+    ("preprocessing/audio.py", "tpu"):
+        TPU + ": K1 wherever its parameters are in range",
+    ("preprocessing/audio.py", "1"):
+        "LIPSYNC_TPU_PALLAS_MEL == '1' opts into the Pallas kernel in JAX; "
+        "K1 is the port's default route, chosen from the parameters alone",
+    ("training/finetune.py", ".pth"):
+        "the JAX finetune tells a .pth file from an orbax directory by its "
+        "suffix; the port's reads either kind of file as a torch state dict "
+        "and a directory as a port checkpoint",
+    ("training/optimizers.py", "visual_encoder"):
+        "optax labels by module name; PhaseOptimizer labels by state-dict "
+        "prefix ('visual_encoder.')",
+    ("training/optimizers.py", "audio_encoder"):
+        "optax labels by module name; PhaseOptimizer labels by state-dict "
+        "prefix ('audio_encoder.')",
+    ("training/optimizers.py", "learning_rate"):
+        "optax's injected hyperparameter; torch's parameter groups hold "
+        "'lr'",
+}
+
+
+def _compared_strings(path: Path) -> Set[str]:
+    """The string literals that ``path`` compares against."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if not isinstance(node, ast.Compare):
+            continue
+        for operand in [node.left] + node.comparators:
+            elts = (operand.elts if isinstance(
+                operand, (ast.Tuple, ast.List, ast.Set)) else [operand])
+            out.update(e.value for e in elts if isinstance(e, ast.Constant)
+                       and isinstance(e.value, str))
+    return out
+
+
+def _strings(path: Path) -> Set[str]:
+    if not path.is_file():
+        return set()
+    return {n.value for n in ast.walk(ast.parse(path.read_text()))
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+
+
+def test_the_string_walk_finds_what_the_jax_package_tests_for():
+    """The lowering names of ``ConvBNAct`` (the port raised for
+    ``shift_matmul`` until it took the lowering), the engine's platform
+    check and the optimizer's labels."""
+    assert {"shift_matmul", "int8"} <= _compared_strings(
+        JAX_PKG / "models/layers.py")
+    assert "tpu" in _compared_strings(JAX_PKG / "inference/engine.py")
+    assert "visual_encoder" in _compared_strings(
+        JAX_PKG / "training/optimizers.py")
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_compared_string_is_in_the_port(module):
+    port = _strings(PORT_PKG / PORT_MODULE.get(module, module))
+    missing = sorted(s for s in _compared_strings(JAX_PKG / module)
+                     if s not in port and (module, s) not in STRING_IDIOMS)
+    assert not missing, (f"{module} compares against {missing}, which the "
+                         "port's module never names")
+
+
+@pytest.mark.parametrize("key", sorted(STRING_IDIOMS),
+                         ids=lambda k: "::".join(k))
+def test_every_string_idiom_is_current(key):
+    module, literal = key
+    assert literal in _compared_strings(JAX_PKG / module), key
+    assert literal not in _strings(PORT_PKG / PORT_MODULE.get(module, module))
+    assert len(STRING_IDIOMS[key]) > 10
+
+
 # ── the scripts tier ─────────────────────────────────────────────────────
 #
 # Every script under scripts/ that imports the JAX package or JAX, or runs
@@ -614,3 +702,97 @@ def test_every_flag_idiom_is_current(script):
     assert jax_flags != port_flags, f"{script}: nothing differs"
     assert set(idiom.drop) <= set(jax_flags) and not idiom.rename
     assert set(idiom.add) <= set(port_flags) - set(jax_flags)
+
+
+# ── the root drivers ─────────────────────────────────────────────────────
+#
+# The repo's root bench.py and __graft_entry__.py drive only the JAX
+# package; each has its tool. Every top-level def of the driver, private
+# ones too, has a def of the same name in the tool, or stands in the table
+# below with its tool's name for it or its reason; so does every key of the
+# JSON line that bench.py prints (the tool's ``run`` returns one dict
+# literal) and every JAX configuration switch the driver sets.
+
+ROOT_DRIVERS = {"bench.py": "bench", "__graft_entry__.py": "graft_entry"}
+FALLBACK = ("the CPU fall-back when the remote accelerator is unreachable: "
+            "the tool's --device names the device, and cuda:0 without CUDA "
+            "raises (utils/device.py::get_device)")
+CACHE = ("JAX's persistent compilation cache; the port's kernels build "
+         "once per checkout (ops/kernels/build.py)")
+# (driver, name) -> the tool's name for it, or why it has none.
+ROOT_EXCEPTIONS = {
+    ("bench.py", "_compiled_flops"): "_counted_flops",
+    ("bench.py", "_accelerator_reachable"): FALLBACK,
+    ("bench.py", "jax_platforms"): FALLBACK,
+    ("bench.py", "note"): "printed only after " + FALLBACK,
+    ("bench.py", "jax_compilation_cache_dir"): CACHE,
+    ("bench.py", "jax_persistent_cache_min_entry_size_bytes"): CACHE,
+    ("bench.py", "jax_persistent_cache_min_compile_time_secs"): CACHE,
+    ("__graft_entry__.py", "_dryrun_multichip_inproc"):
+        "JAX runs the whole dry run in one process over n devices (and "
+        "re-executes itself on n virtual CPU devices to get them); torch "
+        "trains one process per rank, so the tool's dryrun_multichip "
+        "spawns the ranks (_train_rank) and serves in process",
+}
+
+
+def _printed_keys(path: Path) -> Set[str]:
+    """The string keys of the dict literal with a ``"metric"`` key and of
+    the dicts nested in it."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Dict) and any(
+                isinstance(k, ast.Constant) and k.value == "metric"
+                for k in node.keys):
+            return {k.value for sub in ast.walk(node)
+                    if isinstance(sub, ast.Dict) for k in sub.keys
+                    if isinstance(k, ast.Constant)}
+    return set()
+
+
+def _jax_switches(path: Path) -> Set[str]:
+    """The names that ``jax.config.update`` sets."""
+    return {node.args[0].value for node in ast.walk(ast.parse(
+        path.read_text())) if isinstance(node, ast.Call)
+        and ast.unparse(node.func) == "jax.config.update"}
+
+
+def _root_items(driver: str) -> Set[str]:
+    path = ROOT / driver
+    return (_names(path, private=True) | _printed_keys(path)
+            | _jax_switches(path))
+
+
+@pytest.mark.parametrize("driver", sorted(ROOT_DRIVERS))
+def test_every_root_driver_has_its_tool(driver):
+    tool = TOOLS / f"{ROOT_DRIVERS[driver]}.py"
+    assert tool.is_file(), f"{driver} has no {tool}"
+    ported = _names(tool, private=True) | _printed_keys(tool)
+    missing = []
+    for item in sorted(_root_items(driver)):
+        excused = ROOT_EXCEPTIONS.get((driver, item))
+        if item not in ported and excused not in ported:
+            if excused is None:
+                missing.append(item)
+    assert not missing, f"{driver}: nothing in {tool.name} for {missing}"
+
+
+def test_the_root_walk_sees_the_drivers():
+    assert {"main", "_measure", "_accelerator_reachable"} <= _root_items(
+        "bench.py")
+    assert {"value", "engine_link_utilization", "platform", "note",
+            "jax_compilation_cache_dir"} <= _root_items("bench.py")
+    assert {"entry", "dryrun_multichip", "_initialized_device_count",
+            "_dryrun_multichip_inproc"} <= _root_items("__graft_entry__.py")
+
+
+@pytest.mark.parametrize("key", sorted(ROOT_EXCEPTIONS),
+                         ids=lambda k: "::".join(k))
+def test_every_root_exception_is_current(key):
+    """Each entry names something the driver has and its tool has not
+    under that name: a rename whose target the tool has, or a reason."""
+    driver, item = key
+    tool = TOOLS / f"{ROOT_DRIVERS[driver]}.py"
+    ported = _names(tool, private=True) | _printed_keys(tool)
+    assert item in _root_items(driver) and item not in ported, key
+    target = ROOT_EXCEPTIONS[key]
+    assert target in ported or len(target) > 40, key
