@@ -1,0 +1,11 @@
+"""Median device milliseconds a train step spends in the program's
+``train.update`` span (the optimizer's step): the stream time between
+the span's events, with any wait on the host's launches, summed per
+``train.step``."""
+
+from benchmark.core import program
+
+
+def read(view):
+    return program.median_ms_by(
+        program.spans(view, "train.update") or [], "root")

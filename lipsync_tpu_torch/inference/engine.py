@@ -56,6 +56,7 @@ from lipsync_tpu_torch.models.bridge import (
 from lipsync_tpu_torch.models.lip_sync_model import LipSyncModel, ModelConfig
 from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.training import checkpoints
+from lipsync_tpu_torch.utils import profiling
 from lipsync_tpu_torch.utils.device import (
     DeviceLike,
     disable_tf32,
@@ -153,7 +154,9 @@ class ScoringEngine:
 
     @staticmethod
     def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        x = np.ascontiguousarray(x)
+        profiling.count("engine.upload_bytes", x.nbytes)
+        return torch.from_numpy(x).to(device)
 
     def _bucket(self, n: int) -> int:
         """``n`` rounded up to its bucket, and on a mesh to a multiple of
@@ -170,9 +173,11 @@ class ScoringEngine:
         every shard), in order otherwise (CUDA launches are asynchronous,
         so the devices of a mesh still overlap)."""
 
+        parent = profiling.current()  # a lockstep thread's spans hang here
+
         def in_mode(call):
             def run():
-                with torch.inference_mode():
+                with profiling.adopt(parent), torch.inference_mode():
                     return call()
             return run
 
@@ -200,23 +205,28 @@ class ScoringEngine:
         """Pad, bucket, upload and run one group of ``n <= max_batch``
         windows; returns the bucket's device logits without waiting for
         them (slice ``[:n]`` after reading back)."""
-        n = visual.shape[0]
-        if audio.ndim == 3:
-            audio = audio[..., None]  # (N, F, T_a, 1)
-        bucket = self._bucket(n)
-        visual, audio = _pad_rows(visual, bucket), _pad_rows(audio, bucket)
-        if visual.dtype != np.uint8:
-            visual = (_to_uint8(visual) if self.transfer_uint8
-                      else visual.astype(np.float32, copy=False))
-        audio = audio.astype(np.float32, copy=False)
-        as_u8 = visual.dtype == np.uint8
+        with profiling.span("engine.dispatch"):
+            n = visual.shape[0]
+            with profiling.span("engine.pad"):
+                if audio.ndim == 3:
+                    audio = audio[..., None]  # (N, F, T_a, 1)
+                bucket = self._bucket(n)
+                visual = _pad_rows(visual, bucket)
+                audio = _pad_rows(audio, bucket)
+                if visual.dtype != np.uint8:
+                    visual = (_to_uint8(visual) if self.transfer_uint8
+                              else visual.astype(np.float32, copy=False))
+                audio = audio.astype(np.float32, copy=False)
+            as_u8 = visual.dtype == np.uint8
 
-        def run(model, dev, lo, hi):
-            v = self._upload(visual[lo:hi], dev)
-            v = v.float() / 255.0 if as_u8 else v
-            return model(v, self._upload(audio[lo:hi], dev))
+            def run(model, dev, lo, hi):
+                with profiling.span("engine.upload", device=dev):
+                    v = self._upload(visual[lo:hi], dev)
+                    a = self._upload(audio[lo:hi], dev)
+                with profiling.span("engine.forward", device=dev):
+                    return model(v.float() / 255.0 if as_u8 else v, a)
 
-        return self._over_rows(bucket, run)
+            return self._over_rows(bucket, run)
 
     def _stream(self, groups) -> np.ndarray:
         """Dispatch ``(dispatch, n)`` groups in order, keeping up to
@@ -226,10 +236,14 @@ class ScoringEngine:
         for dispatch, n in groups:
             pending.append((dispatch(), n))
             while len(pending) >= self.max_in_flight:
-                d, k = pending.pop(0)
-                out.append(d[:k].cpu().numpy())
-        out.extend(d[:k].cpu().numpy() for d, k in pending)
+                out.append(self._read_back(*pending.pop(0)))
+        out.extend(self._read_back(d, k) for d, k in pending)
         return np.concatenate(out)
+
+    @staticmethod
+    def _read_back(logits: torch.Tensor, n: int) -> np.ndarray:
+        with profiling.span("engine.readback"):
+            return logits[:n].cpu().numpy()
 
     def score_logits(self, visual: np.ndarray,
                      audio: np.ndarray) -> np.ndarray:
@@ -240,11 +254,12 @@ class ScoringEngine:
         if n == 0:
             return np.zeros((0,), np.float32)
         b = self.max_batch
-        return self._stream(
-            (lambda i=i: self.dispatch_logits(visual[i : i + b],
-                                              audio[i : i + b]),
-             min(b, n - i))
-            for i in range(0, n, b))
+        with profiling.span("engine.score"):
+            return self._stream(
+                (lambda i=i: self.dispatch_logits(visual[i : i + b],
+                                                  audio[i : i + b]),
+                 min(b, n - i))
+                for i in range(0, n, b))
 
     def score_probs(self, visual: np.ndarray, audio: np.ndarray) -> np.ndarray:
         """Calibrated P(REAL) per window."""
@@ -268,11 +283,12 @@ class ScoringEngine:
         if w == 0:
             return np.zeros((0,), np.float32)
         b = self.max_batch
-        return self._stream(
-            (lambda i=i: self.dispatch_track_logits(
-                crops, starts[i : i + b], audio_windows[i : i + b]),
-             len(starts[i : i + b]))
-            for i in range(0, w, b))
+        with profiling.span("engine.score"):
+            return self._stream(
+                (lambda i=i: self.dispatch_track_logits(
+                    crops, starts[i : i + b], audio_windows[i : i + b]),
+                 len(starts[i : i + b]))
+                for i in range(0, w, b))
 
     def dispatch_track_logits(
         self,
@@ -285,55 +301,70 @@ class ScoringEngine:
         multiple of its size) and starts, gather the windows on the device
         and run the forward; returns the device logits without waiting for
         them."""
-        w = len(starts)
-        chunk = self.config.video_frames
-        if audio_windows.ndim == 3:
-            audio_windows = audio_windows[..., None]
-        if crops.dtype != np.uint8:
-            crops = _to_uint8(crops)
-        n_needed = max(crops.shape[0], max(starts) + chunk)
-        n_pad = chunk
-        while n_pad < n_needed:
-            n_pad *= 2
-        if self.mesh is not None and self.shared_visual_encoding:
-            n_pad = mesh_lib.pad_to_multiple(n_pad, len(self.mesh))
-        crops = _pad_rows(crops, n_pad)
-        bucket = self._bucket(w)
-        starts_arr = np.zeros(bucket, np.int64)
-        starts_arr[:w] = np.asarray(starts, np.int64)
-        audio_windows = _pad_rows(audio_windows, bucket).astype(
-            np.float32, copy=False)
-        on = {d: self._upload(crops, d) for d in self._replicas}
+        with profiling.span("engine.dispatch"):
+            w = len(starts)
+            chunk = self.config.video_frames
+            with profiling.span("engine.pad"):
+                if audio_windows.ndim == 3:
+                    audio_windows = audio_windows[..., None]
+                if crops.dtype != np.uint8:
+                    crops = _to_uint8(crops)
+                n_needed = max(crops.shape[0], max(starts) + chunk)
+                n_pad = chunk
+                while n_pad < n_needed:
+                    n_pad *= 2
+                if self.mesh is not None and self.shared_visual_encoding:
+                    n_pad = mesh_lib.pad_to_multiple(n_pad, len(self.mesh))
+                crops = _pad_rows(crops, n_pad)
+                bucket = self._bucket(w)
+                starts_arr = np.zeros(bucket, np.int64)
+                starts_arr[:w] = np.asarray(starts, np.int64)
+                audio_windows = _pad_rows(audio_windows, bucket).astype(
+                    np.float32, copy=False)
+            on = {}
+            for d in self._replicas:
+                with profiling.span("engine.upload", device=d):
+                    on[d] = self._upload(crops, d)
 
-        def window_idx(dev, lo, hi):
-            return (self._upload(starts_arr[lo:hi], dev)[:, None]
-                    + torch.arange(chunk, device=dev))
+            def inputs(dev, lo, hi):
+                """This shard's window starts and mel windows, uploaded."""
+                with profiling.span("engine.upload", device=dev):
+                    return (self._upload(starts_arr[lo:hi], dev),
+                            self._upload(audio_windows[lo:hi], dev))
 
-        if not self.shared_visual_encoding:
-            def run(model, dev, lo, hi):
-                windows = on[dev][window_idx(dev, lo, hi)].float() / 255.0
-                return model(windows, self._upload(audio_windows[lo:hi], dev))
+            def window_idx(starts_d, dev):
+                return starts_d[:, None] + torch.arange(chunk, device=dev)
 
-            return self._over_rows(bucket, run)
-        # Shared-track encoding: the visual encoder has no temporal stride,
-        # so the whole padded track is encoded once and every window
-        # gathers its frames' features. As in the JAX engine, interior
-        # windows then see real neighbour frames in the temporal
-        # convolutions where the per-window path pads with zeros; a
-        # one-window track is the per-window function.
-        v_feat, v_map = self._encode_track(on, n_pad)
-        feats = {d: (v_feat.to(d), None if v_map is None else v_map.to(d))
-                 for d in self._replicas}
+            if not self.shared_visual_encoding:
+                def run(model, dev, lo, hi):
+                    starts_d, mel = inputs(dev, lo, hi)
+                    with profiling.span("engine.forward", device=dev):
+                        windows = on[dev][window_idx(starts_d, dev)]
+                        return model(windows.float() / 255.0, mel)
 
-        def score(model, dev, lo, hi):
-            idx = window_idx(dev, lo, hi)
-            vf, vm = feats[dev]
-            return model.score_encoded(
-                vf[idx], None if vm is None else vm[idx],
-                on[dev][idx].float() / 255.0,
-                self._upload(audio_windows[lo:hi], dev))
+                return self._over_rows(bucket, run)
+            # Shared-track encoding: the visual encoder has no temporal
+            # stride, so the whole padded track is encoded once and every
+            # window gathers its frames' features. As in the JAX engine,
+            # interior windows then see real neighbour frames in the
+            # temporal convolutions where the per-window path pads with
+            # zeros; a one-window track is the per-window function.
+            with profiling.span("engine.forward", device=self.device):
+                v_feat, v_map = self._encode_track(on, n_pad)
+                feats = {d: (v_feat.to(d),
+                             None if v_map is None else v_map.to(d))
+                         for d in self._replicas}
 
-        return self._over_rows(bucket, score)
+            def score(model, dev, lo, hi):
+                starts_d, mel = inputs(dev, lo, hi)
+                with profiling.span("engine.forward", device=dev):
+                    idx = window_idx(starts_d, dev)
+                    vf, vm = feats[dev]
+                    return model.score_encoded(
+                        vf[idx], None if vm is None else vm[idx],
+                        on[dev][idx].float() / 255.0, mel)
+
+            return self._over_rows(bucket, score)
 
     def _encode_track(self, on: Dict[torch.device, torch.Tensor],
                       n_pad: int):

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from lipsync_tpu_torch.parallel import mesh as mesh_lib
+from lipsync_tpu_torch.utils import profiling
 from lipsync_tpu_torch.utils.device import DeviceLike, get_device
 from lipsync_tpu_torch.utils.logger import get_logger
 
@@ -141,23 +142,24 @@ class DeviceDatasetCache:
         """The batch of clips ``idx`` with windows at ``starts``, on the
         device."""
         dev = self.device
-        idx_d = torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
-        starts_d = torch.from_numpy(np.asarray(starts, np.int64)).to(dev)
-        frames = starts_d[:, None] + torch.arange(self.video_frames,
-                                                  device=dev)
-        visual = self._visual[idx_d[:, None], frames]
-        ms = torch.round(starts_d.float() / self.fps * self.mel_hz).long()
-        ms = torch.minimum(ms.clamp(min=0),
-                           (self._a_len[idx_d] - 1).clamp(min=0))
-        cols = ms[:, None] + self._res_idx[None, :]  # (B, audio_frames)
-        audio = self._audio[idx_d[:, None, None],
-                            torch.arange(80, device=dev)[None, :, None],
-                            cols[:, None, :]]
-        batch = {"visual": visual, "audio": audio[..., None],
-                 "label": self._labels[idx_d]}
-        if mask is not None:
-            batch["sample_mask"] = torch.from_numpy(mask).to(dev)
-        return batch
+        with profiling.span("train.feed", device=dev):
+            idx_d = torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
+            starts_d = torch.from_numpy(np.asarray(starts, np.int64)).to(dev)
+            frames = starts_d[:, None] + torch.arange(self.video_frames,
+                                                      device=dev)
+            visual = self._visual[idx_d[:, None], frames]
+            ms = torch.round(starts_d.float() / self.fps * self.mel_hz).long()
+            ms = torch.minimum(ms.clamp(min=0),
+                               (self._a_len[idx_d] - 1).clamp(min=0))
+            cols = ms[:, None] + self._res_idx[None, :]  # (B, audio_frames)
+            audio = self._audio[idx_d[:, None, None],
+                                torch.arange(80, device=dev)[None, :, None],
+                                cols[:, None, :]]
+            batch = {"visual": visual, "audio": audio[..., None],
+                     "label": self._labels[idx_d]}
+            if mask is not None:
+                batch["sample_mask"] = torch.from_numpy(mask).to(dev)
+            return batch
 
     def batches(
         self,

@@ -65,6 +65,7 @@ from lipsync_tpu_torch.training.losses import (
     sync_contrastive_loss,
 )
 from lipsync_tpu_torch.training.optimizers import PhaseOptimizer
+from lipsync_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -152,74 +153,87 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    shift: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        with profiling.span("train.step"):
+            return _step(state, batch, shift)
+
+    def _step(state, batch, shift):
         model, shard = state.model, state.shard
+        dev = batch["visual"].device
         model.train()
-        visual, audio = batch["visual"], batch["audio"]
-        if visual.dtype == torch.uint8:
-            visual = visual.float() / 255.0
-        if augment_cfg is not None and augment_cfg.enabled:
-            with torch.no_grad():
-                visual, audio = _augment_rows(
-                    state.aug_generator, visual, audio, augment_cfg,
-                    shard or ProcessShard(0, 1))
-        if shift is None and use_sync:
-            pick = torch.randint(len(shifts), (), generator=state.generator)
-            shift = shifts[int(pick)]
-        # Every loss, count and metric below is over the global batch.
-        gather = all_gather_rows if shard is not None else (lambda t: t)
-        labels = gather(batch["label"].float())
-        sample_mask = batch.get("sample_mask")
-        if sample_mask is not None:
-            sample_mask = gather(sample_mask.float())
-
-        dropout_rng = _rng_state(visual.device)
-        with batch_shard(shard):
-            logits, aux = model(visual, audio, return_aux=True)
-        logits = gather(logits)
-        v_tok = gather(aux["visual_tokens"])
-        a_tok = gather(aux["audio_tokens"])
-        bce = bce_with_logits(logits, labels, sample_mask=sample_mask)
-        cm = cross_modal_contrastive_loss(
-            v_tok, a_tok, labels,
-            temperature=loss_cfg.contrastive_temperature,
-            fake_margin=loss_cfg.contrastive_fake_margin,
-            sample_mask=sample_mask,
-        )
-        loss = bce + loss_cfg.contrastive_weight * cm
-
-        sync = torch.zeros((), device=logits.device)
-        if use_sync:
-            _set_rng_state(visual.device, dropout_rng)
-            with frozen_batch_stats(model), batch_shard(shard):
-                _, aux_neg = model(visual, torch.roll(audio, shift, dims=2),
-                                   return_aux=True)
-            real_mask = labels >= 0.5
+        with profiling.span("train.augment", device=dev):
+            visual, audio = batch["visual"], batch["audio"]
+            if visual.dtype == torch.uint8:
+                visual = visual.float() / 255.0
+            if augment_cfg is not None and augment_cfg.enabled:
+                with torch.no_grad():
+                    visual, audio = _augment_rows(
+                        state.aug_generator, visual, audio, augment_cfg,
+                        shard or ProcessShard(0, 1))
+        with profiling.span("train.forward", device=dev):
+            if shift is None and use_sync:
+                pick = torch.randint(len(shifts), (),
+                                     generator=state.generator)
+                shift = shifts[int(pick)]
+            # Every loss, count and metric below is over the global batch.
+            gather = all_gather_rows if shard is not None else (lambda t: t)
+            labels = gather(batch["label"].float())
+            sample_mask = batch.get("sample_mask")
             if sample_mask is not None:
-                real_mask = real_mask & (sample_mask > 0)
-            sync = sync_contrastive_loss(
-                v_tok, a_tok, [gather(aux_neg["audio_tokens"])],
-                real_mask=real_mask,
+                sample_mask = gather(sample_mask.float())
+
+            dropout_rng = _rng_state(visual.device)
+            with batch_shard(shard):
+                logits, aux = model(visual, audio, return_aux=True)
+            logits = gather(logits)
+            v_tok = gather(aux["visual_tokens"])
+            a_tok = gather(aux["audio_tokens"])
+            bce = bce_with_logits(logits, labels, sample_mask=sample_mask)
+            cm = cross_modal_contrastive_loss(
+                v_tok, a_tok, labels,
                 temperature=loss_cfg.contrastive_temperature,
+                fake_margin=loss_cfg.contrastive_fake_margin,
+                sample_mask=sample_mask,
             )
-            loss = loss + loss_cfg.sync_weight * sync
+            loss = bce + loss_cfg.contrastive_weight * cm
 
-        state.optimizer.zero_grad()
-        if shard is None:
-            loss.backward()
-        else:
-            (loss / shard.world).backward()
-            all_reduce_grads(model.parameters())
-        state.optimizer.step()
-        state.step += 1
+            sync = torch.zeros((), device=logits.device)
+            if use_sync:
+                _set_rng_state(visual.device, dropout_rng)
+                with frozen_batch_stats(model), batch_shard(shard):
+                    _, aux_neg = model(visual,
+                                       torch.roll(audio, shift, dims=2),
+                                       return_aux=True)
+                real_mask = labels >= 0.5
+                if sample_mask is not None:
+                    real_mask = real_mask & (sample_mask > 0)
+                sync = sync_contrastive_loss(
+                    v_tok, a_tok, [gather(aux_neg["audio_tokens"])],
+                    real_mask=real_mask,
+                    temperature=loss_cfg.contrastive_temperature,
+                )
+                loss = loss + loss_cfg.sync_weight * sync
 
-        with torch.no_grad():
-            correct = ((torch.sigmoid(logits) > 0.5).float()
-                       == labels).float()
-            if sample_mask is None:
-                acc = correct.mean()
+            with torch.no_grad():
+                correct = ((torch.sigmoid(logits) > 0.5).float()
+                           == labels).float()
+                if sample_mask is None:
+                    acc = correct.mean()
+                else:
+                    m = sample_mask.float()
+                    acc = (correct * m).sum() / m.sum().clamp(min=1.0)
+
+        # Zeroing sets every ``.grad`` to None on the host (no device
+        # work) and has to precede the backward, so it opens that span.
+        with profiling.span("train.backward", device=dev):
+            state.optimizer.zero_grad()
+            if shard is None:
+                loss.backward()
             else:
-                m = sample_mask.float()
-                acc = (correct * m).sum() / m.sum().clamp(min=1.0)
+                (loss / shard.world).backward()
+                all_reduce_grads(model.parameters())
+        with profiling.span("train.update", device=dev):
+            state.optimizer.step()
+        state.step += 1
         return {"loss": loss.detach(), "bce": bce.detach(),
                 "contrastive": cm.detach(), "sync": sync.detach(),
                 "accuracy": acc}

@@ -4,6 +4,7 @@ draws, and ``run_training`` / ``run_finetune`` with ``--device-cache``."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 
 import numpy as np
@@ -15,6 +16,7 @@ from lipsync_tpu.training.device_cache import DeviceDatasetCache as JaxCache
 from lipsync_tpu_torch.training import checkpoints as ckpt
 from lipsync_tpu_torch.training.data import LipSyncDataset
 from lipsync_tpu_torch.training.device_cache import DeviceDatasetCache
+from lipsync_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -57,11 +59,24 @@ def _caches(pre_dir):
             JaxCache(JaxDataset(**kw)))
 
 
+@pytest.mark.parametrize("profiled", [False, True],
+                         ids=["plain", "profiled"])
 @pytest.mark.parametrize("train", [False, True])
-def test_batches_match_jax(pre_dir, train):
+def test_batches_match_jax(pre_dir, train, profiled):
+    """Under a profiler too, where each gather records one
+    ``train.feed`` span."""
+    from torch.profiler import ProfilerActivity, profile
+
     port, ref = _caches(pre_dir)
-    got = list(port.batches(range(6), 4, rng=np.random.RandomState(3),
-                            train_mode=train))
+    profiling.clear()
+    with (profile(activities=[ProfilerActivity.CPU]) if profiled
+          else contextlib.nullcontext()):
+        got = list(port.batches(range(6), 4, rng=np.random.RandomState(3),
+                                train_mode=train))
+    feeds = [r for r in profiling.records() if r.name == "train.feed"]
+    profiling.clear()
+    assert len(feeds) == (2 if profiled else 0)
+    assert all(r.parent is None for r in feeds)
     want = list(ref.batches(range(6), 4, rng=np.random.RandomState(3),
                             train_mode=train))
     assert len(got) == len(want) == 2

@@ -22,7 +22,7 @@ from lipsync_tpu_torch.inference.engine import ScoringEngine, load_engine
 from lipsync_tpu_torch.inference.policy import align_audio_chunk
 from lipsync_tpu_torch.preprocessing.audio import preprocess_audio_pcm
 from lipsync_tpu_torch.preprocessing.video import _bucket, crop_track_on_device
-from lipsync_tpu_torch.utils import synthetic
+from lipsync_tpu_torch.utils import profiling, synthetic
 from tests.torch_parity import seeded_pair
 
 torch.set_num_threads(1)
@@ -294,3 +294,57 @@ def test_max_in_flight_streams_groups(engines, in_flight, track):
             else one.score_logits(
                 np.stack([crops[s : s + 8] for s in starts]), aud))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("track", [False, True], ids=["windows", "track"])
+def test_spans_and_upload_bytes_under_a_profiler(engines, track):
+    """Under a CPU profiler one call over 2.5 groups records one
+    ``engine.score`` and, per group, an ``engine.dispatch`` holding
+    ``engine.pad``, ``engine.upload`` and ``engine.forward``, and an
+    ``engine.readback``; ``engine.upload_bytes`` is the bytes of the padded
+    group arrays; the logits are bit-equal with tracing off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, cfg = engines
+    _, _, variables, _ = seeded_pair(5)
+    eng = ScoringEngine(variables, cfg, device="cpu", use_bfloat16=False,
+                        max_batch=4)
+    rng = np.random.RandomState(17)
+    crops = rng.rand(40, 32, 32, 3).astype(np.float32)
+    starts = [0, 3, 5, 8, 11, 14, 17, 20, 25, 31]
+    aud = (rng.rand(10, 80, 32) * 80 - 80).astype(np.float32)
+
+    def call():
+        if track:
+            return eng.score_track_logits(crops, starts, aud)
+        return eng.score_logits(np.stack([crops[s:s + 8] for s in starts]),
+                                aud)
+
+    profiling.clear()
+    off = call()
+    assert profiling.records() == [] and profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = call()
+    recs = profiling.records()
+    bytes_ = profiling.counters()["engine.upload_bytes"]
+    profiling.clear()
+    np.testing.assert_array_equal(on, off)
+    score = [r for r in recs if r.name == "engine.score"]
+    assert len(score) == 1 and score[0].parent is None
+    assert {r.root for r in recs} == {score[0].id}
+    dispatch = [r for r in recs if r.name == "engine.dispatch"]
+    readback = [r for r in recs if r.name == "engine.readback"]
+    assert len(dispatch) == len(readback) == 3
+    assert all(r.parent == score[0].id for r in dispatch + readback)
+    # The track path uploads the group's crops, then each shard's starts
+    # and mel windows: two uploads a group on one device.
+    uploads = ["engine.upload"] * (2 if track else 1)
+    for d in dispatch:
+        kids = sorted(r.name for r in recs if r.parent == d.id)
+        assert kids == ["engine.forward", "engine.pad"] + uploads
+    assert len(recs) == 1 + 3 * (4 + len(uploads))
+    buckets = (4, 4, 2)
+    window_bytes = 80 * 32 * 4 + (8 if track else 8 * 32 * 32 * 3)
+    # The track path uploads its crops padded to 8 * 2^k frames per group.
+    crop_bytes = 3 * 64 * 32 * 32 * 3 if track else 0
+    assert bytes_ == sum(buckets) * window_bytes + crop_bytes

@@ -38,6 +38,7 @@ from lipsync_tpu_torch.ops.kernels import int8_conv as k3
 from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.preprocessing.face_detection import FakeDetector
 from lipsync_tpu_torch.serving.config import Settings
+from lipsync_tpu_torch.utils import profiling
 from tests.fixtures import synthetic_frames, write_av_video
 from tests.torch_parity import assert_same, seeded_pair
 
@@ -249,6 +250,31 @@ def test_mesh_shards_launch_on_every_shard(pair, monkeypatch):
     port.score_logits(vis, aud)
     assert len(calls) == 8 * per_forward
     assert set(calls) == {1}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_shard_spans_hang_under_their_dispatch(pair, int8):
+    """Under a profiler each shard's ``engine.upload`` and
+    ``engine.forward`` are children of the group's ``engine.dispatch``,
+    also when the int8 shards run in lockstep threads; tracing leaves the
+    logits bit-equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    port, _, _ = _engines(pair, 2, quantized_int8=int8)
+    vis, aud = _inputs(28, n=4)
+    profiling.clear()
+    off = port.score_logits(vis, aud)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = port.score_logits(vis, aud)
+    recs = profiling.records()
+    profiling.clear()
+    np.testing.assert_array_equal(on, off)
+    (dispatch,) = [r for r in recs if r.name == "engine.dispatch"]
+    for name in ("engine.upload", "engine.forward"):
+        shards = [r for r in recs if r.name == name]
+        assert len(shards) == 2
+        assert all(r.parent == dispatch.id for r in shards)
+        assert all(r.root == dispatch.root for r in shards)
 
 
 # ── predictor and settings ───────────────────────────────────────────────

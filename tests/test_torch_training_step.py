@@ -25,6 +25,7 @@ Two limits of fp32 that the gradient bound has to respect:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -445,3 +446,59 @@ def test_train_step_runs_and_descends():
     losses = [float(step(state, batch)["loss"]) for _ in range(3)]
     assert np.all(np.isfinite(losses)) and state.step == 3
     assert losses[-1] < losses[0]
+
+
+def _two_steps(augment, profiled):
+    """Two Adam steps on a uint8 batch with dropout on, from the same seed;
+    the losses, the parameters after, and the spans kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lipsync_tpu_torch.ops.augment import AugmentConfig
+    from lipsync_tpu_torch.utils import profiling
+
+    torch.manual_seed(0)
+    model = LipSyncModel(ModelConfig(video_frames=4, crop_size=32,
+                                     audio_frames=16, dropout=0.2))
+    state = steps.create_train_state(
+        model, PhaseOptimizer(model.named_parameters(), 3, 1e-3, 1e-3), 0)
+    rng = np.random.RandomState(1)
+    batch = {
+        "visual": torch.from_numpy(rng.randint(0, 256, (4, 4, 32, 32, 3))
+                                   .astype(np.uint8)),
+        "audio": torch.from_numpy((rng.rand(4, 80, 16, 1) * 80 - 80)
+                                  .astype(np.float32)),
+        "label": torch.from_numpy(np.asarray([1, 0, 1, 0], np.float32)),
+    }
+    step = steps.make_train_step(
+        steps.LossConfig(), augment_cfg=AugmentConfig() if augment else None)
+    profiling.clear()
+    with (profile(activities=[ProfilerActivity.CPU]) if profiled
+          else contextlib.nullcontext()):
+        losses = [step(state, batch)["loss"] for _ in range(2)]
+    recs = profiling.records()
+    profiling.clear()
+    return losses, {n: p.detach().clone()
+                    for n, p in model.named_parameters()}, recs
+
+
+@pytest.mark.parametrize("augment", [False, True], ids=["plain", "augment"])
+def test_train_step_spans_leave_the_step_bit_equal(augment):
+    """Under a profiler two steps record two ``train.step`` trees of four
+    children each (augment, forward, backward, update), and the losses and
+    parameters are bit-equal with tracing off, where nothing is kept."""
+    losses, params, recs = _two_steps(augment, profiled=True)
+    want_losses, want_params, none = _two_steps(augment, profiled=False)
+    assert none == []
+    assert [float(x) for x in losses] == [float(x) for x in want_losses]
+    for k, v in want_params.items():
+        assert torch.equal(params[k], v), k
+    roots = [r for r in recs if r.name == "train.step"]
+    assert len(roots) == 2 and all(r.parent is None for r in roots)
+    for root in roots:
+        kids = sorted((r for r in recs if r.parent == root.id),
+                      key=lambda r: r.t0_ns)
+        assert [r.name for r in kids] == ["train.augment", "train.forward",
+                                          "train.backward", "train.update"]
+        assert all(r.root == root.id for r in kids)
+        assert root.t0_ns <= kids[0].t0_ns and kids[-1].t1_ns <= root.t1_ns
+    assert len(recs) == 10
