@@ -14,6 +14,22 @@ before it waits for the one before). The forward runs under
 ``torch.inference_mode()``; on CUDA it runs in bf16 by default
 (``use_bfloat16=None``), on the CPU in fp32.
 
+On a CUDA device every upload goes through the device's pinned staging
+ring of two slots (``inference/staging.py``): the host copies the group
+into a free pinned slot, the device's own copy stream copies it into the
+slot's device buffer, and the compute stream waits on that copy's event
+alone, so the copy of group k+1 runs on the copy engine beside the
+forward of group k. A dispatch holds its slots only until its forward is
+enqueued, and group k+2 is staged only after group k is read back, so two
+slots keep the copy beside the forward for any ``max_in_flight``. Right
+after each forward the group's logits are copied into pinned memory on
+the compute stream behind an event of their own, and
+:meth:`ScoringEngine.read_back` waits on that event, not on the stream
+(which by then holds the next group's forward).
+The caller's arrays may be reused as soon as a dispatch returns. On any
+other device an upload is a plain ``.to(device)`` and a read-back a plain
+``.cpu()``.
+
 The JAX engine's single-device serving options, each off by default:
 ``shared_visual_encoding`` (the long path encodes a track's frames once and
 gathers every window's features), ``quantized_int8`` (encoder convolutions
@@ -42,13 +58,16 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from lipsync_tpu_torch.inference.calibration import Calibrator
+from lipsync_tpu_torch.inference.staging import CudaLink, Slot, StagingRing
 from lipsync_tpu_torch.models.bridge import (
     unwrap_state_dict,
     variables_to_state_dict,
@@ -65,6 +84,10 @@ from lipsync_tpu_torch.utils.device import (
 from lipsync_tpu_torch.utils.weights import default_checkpoint
 
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+_STAGING_SLOTS = 2
+# The attribute of a group's device logits that holds their pinned host copy
+# and its event (CUDA only).
+_READ_BACK = "_engine_read_back"
 
 
 def _bucket_batch(n: int) -> int:
@@ -146,17 +169,72 @@ class ScoringEngine:
         # group is read back before the next is dispatched).
         self.max_in_flight = max(1, int(max_in_flight))
         self.transfer_uint8 = bool(transfer_uint8)
+        # Per CUDA device a staging ring and its copy stream, made at first
+        # use.
+        self._rings: Dict[torch.device, StagingRing] = {}
+        self._rings_lock = threading.Lock()
 
     @property
     def variables(self) -> Dict[str, torch.Tensor]:
         """The loaded weights (the model's ``state_dict``), on the device."""
         return self.model.state_dict()
 
+    def _ring(self, dev: torch.device) -> Optional[StagingRing]:
+        """The staging ring of ``dev`` (None off CUDA)."""
+        if dev.type != "cuda":
+            return None
+        with self._rings_lock:
+            ring = self._rings.get(dev)
+            if ring is None:
+                ring = StagingRing(_STAGING_SLOTS, CudaLink(dev))
+                self._rings[dev] = ring
+        return ring
+
+    def _upload(self, arrays: Sequence[np.ndarray], dev: torch.device,
+                leases: List[Tuple[StagingRing, Slot]]
+                ) -> List[torch.Tensor]:
+        """Move one upload's host arrays to ``dev`` in an ``engine.upload``
+        span. On CUDA they go through the device's staging ring: the span
+        is opened on the copy stream and its device time is the copy (as
+        the trace's host-to-device copies time it); the host's copy into
+        pinned memory before it is the child span ``engine.stage``; the
+        slot joins ``leases`` for :meth:`_release`, and the current stream
+        waits for the copy before what follows. Elsewhere, or when another
+        caller holds every slot, the arrays move with a plain
+        ``.to(dev)``."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        nbytes = sum(a.nbytes for a in arrays)
+        profiling.count("engine.upload_bytes", nbytes)
+        ring = self._ring(dev)
+        slot = None if ring is None else ring.acquire()
+        if slot is None:
+            with profiling.span("engine.upload", device=dev):
+                return [torch.from_numpy(a).to(dev) for a in arrays]
+        leases.append((ring, slot))
+        with ring.link.copying(), profiling.span("engine.upload", device=dev):
+            out = ring.fill(slot, arrays)
+        profiling.count("engine.upload_staged_bytes", nbytes)
+        ring.ready(slot, torch.cuda.current_stream(dev))
+        return out
+
     @staticmethod
-    def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
-        x = np.ascontiguousarray(x)
-        profiling.count("engine.upload_bytes", x.nbytes)
-        return torch.from_numpy(x).to(device)
+    def _release(leases: List[Tuple[StagingRing, Slot]]) -> None:
+        """Hand back a dispatch's staging slots, every read of them
+        enqueued on each device's current stream."""
+        for ring, slot in leases:
+            ring.release(slot, torch.cuda.current_stream(ring.link.device))
+
+    @staticmethod
+    def _enqueue_read_back(logits: torch.Tensor) -> torch.Tensor:
+        """On CUDA, copy a group's logits into pinned memory right behind
+        its forward, with an event of their own, for :meth:`read_back`."""
+        if logits.device.type == "cuda":
+            host = torch.empty(logits.shape, dtype=logits.dtype,
+                               pin_memory=True)
+            host.copy_(logits, non_blocking=True)
+            done = CudaLink.event(torch.cuda.current_stream(logits.device))
+            setattr(logits, _READ_BACK, (host, done))
+        return logits
 
     def _bucket(self, n: int) -> int:
         """``n`` rounded up to its bucket, and on a mesh to a multiple of
@@ -204,7 +282,7 @@ class ScoringEngine:
                         audio: np.ndarray) -> torch.Tensor:
         """Pad, bucket, upload and run one group of ``n <= max_batch``
         windows; returns the bucket's device logits without waiting for
-        them (slice ``[:n]`` after reading back)."""
+        them (:meth:`read_back` gives the first ``n`` on the host)."""
         with profiling.span("engine.dispatch"):
             n = visual.shape[0]
             with profiling.span("engine.pad"):
@@ -218,15 +296,19 @@ class ScoringEngine:
                               else visual.astype(np.float32, copy=False))
                 audio = audio.astype(np.float32, copy=False)
             as_u8 = visual.dtype == np.uint8
+            leases: List[Tuple[StagingRing, Slot]] = []
 
             def run(model, dev, lo, hi):
-                with profiling.span("engine.upload", device=dev):
-                    v = self._upload(visual[lo:hi], dev)
-                    a = self._upload(audio[lo:hi], dev)
+                v, a = self._upload([visual[lo:hi], audio[lo:hi]], dev,
+                                    leases)
                 with profiling.span("engine.forward", device=dev):
                     return model(v.float() / 255.0 if as_u8 else v, a)
 
-            return self._over_rows(bucket, run)
+            try:
+                logits = self._over_rows(bucket, run)
+            finally:
+                self._release(leases)
+            return self._enqueue_read_back(logits)
 
     def _stream(self, groups) -> np.ndarray:
         """Dispatch ``(dispatch, n)`` groups in order, keeping up to
@@ -236,14 +318,26 @@ class ScoringEngine:
         for dispatch, n in groups:
             pending.append((dispatch(), n))
             while len(pending) >= self.max_in_flight:
-                out.append(self._read_back(*pending.pop(0)))
-        out.extend(self._read_back(d, k) for d, k in pending)
+                out.append(self.read_back(*pending.pop(0)))
+        out.extend(self.read_back(d, k) for d, k in pending)
         return np.concatenate(out)
 
     @staticmethod
-    def _read_back(logits: torch.Tensor, n: int) -> np.ndarray:
+    def read_back(logits: torch.Tensor, n: int) -> np.ndarray:
+        """The first ``n`` logits of a group from :meth:`dispatch_logits`
+        or :meth:`dispatch_track_logits`, on the host: on CUDA a wait on
+        the group's own read-back event, not on the stream; otherwise (or
+        for logits the engine did not make, such as a new tensor built
+        from them) ``logits[:n].cpu()``. On CUDA the values are those the
+        group's forward wrote: an in-place edit of the device logits after
+        the dispatch returned is not seen."""
         with profiling.span("engine.readback"):
-            return logits[:n].cpu().numpy()
+            pending = getattr(logits, _READ_BACK, None)
+            if pending is None:
+                return logits[:n].cpu().numpy()
+            host, done = pending
+            done.synchronize()
+            return host[:n].numpy()
 
     def score_logits(self, visual: np.ndarray,
                      audio: np.ndarray) -> np.ndarray:
@@ -321,50 +415,64 @@ class ScoringEngine:
                 starts_arr[:w] = np.asarray(starts, np.int64)
                 audio_windows = _pad_rows(audio_windows, bucket).astype(
                     np.float32, copy=False)
-            on = {}
-            for d in self._replicas:
-                with profiling.span("engine.upload", device=d):
-                    on[d] = self._upload(crops, d)
+            leases: List[Tuple[StagingRing, Slot]] = []
+            try:
+                on = {d: self._upload([crops], d, leases)[0]
+                      for d in self._replicas}
+                logits = self._track_forward(on, n_pad, starts_arr,
+                                             audio_windows, bucket, leases)
+            finally:
+                self._release(leases)
+            return self._enqueue_read_back(logits)
 
-            def inputs(dev, lo, hi):
-                """This shard's window starts and mel windows, uploaded."""
-                with profiling.span("engine.upload", device=dev):
-                    return (self._upload(starts_arr[lo:hi], dev),
-                            self._upload(audio_windows[lo:hi], dev))
+    def _track_forward(self, on: Dict[torch.device, torch.Tensor],
+                       n_pad: int, starts_arr: np.ndarray,
+                       audio_windows: np.ndarray, bucket: int,
+                       leases: List[Tuple[StagingRing, Slot]]
+                       ) -> torch.Tensor:
+        """Upload each shard's window starts and mel windows, gather the
+        windows from the uploaded crops ``on`` each device and run the
+        forward (per window, or over the shared track encoding)."""
+        chunk = self.config.video_frames
 
-            def window_idx(starts_d, dev):
-                return starts_d[:, None] + torch.arange(chunk, device=dev)
+        def inputs(dev, lo, hi):
+            """This shard's window starts and mel windows, uploaded."""
+            return self._upload([starts_arr[lo:hi], audio_windows[lo:hi]],
+                                dev, leases)
 
-            if not self.shared_visual_encoding:
-                def run(model, dev, lo, hi):
-                    starts_d, mel = inputs(dev, lo, hi)
-                    with profiling.span("engine.forward", device=dev):
-                        windows = on[dev][window_idx(starts_d, dev)]
-                        return model(windows.float() / 255.0, mel)
+        def window_idx(starts_d, dev):
+            return starts_d[:, None] + torch.arange(chunk, device=dev)
 
-                return self._over_rows(bucket, run)
-            # Shared-track encoding: the visual encoder has no temporal
-            # stride, so the whole padded track is encoded once and every
-            # window gathers its frames' features. As in the JAX engine,
-            # interior windows then see real neighbour frames in the
-            # temporal convolutions where the per-window path pads with
-            # zeros; a one-window track is the per-window function.
-            with profiling.span("engine.forward", device=self.device):
-                v_feat, v_map = self._encode_track(on, n_pad)
-                feats = {d: (v_feat.to(d),
-                             None if v_map is None else v_map.to(d))
-                         for d in self._replicas}
-
-            def score(model, dev, lo, hi):
+        if not self.shared_visual_encoding:
+            def run(model, dev, lo, hi):
                 starts_d, mel = inputs(dev, lo, hi)
                 with profiling.span("engine.forward", device=dev):
-                    idx = window_idx(starts_d, dev)
-                    vf, vm = feats[dev]
-                    return model.score_encoded(
-                        vf[idx], None if vm is None else vm[idx],
-                        on[dev][idx].float() / 255.0, mel)
+                    windows = on[dev][window_idx(starts_d, dev)]
+                    return model(windows.float() / 255.0, mel)
 
-            return self._over_rows(bucket, score)
+            return self._over_rows(bucket, run)
+        # Shared-track encoding: the visual encoder has no temporal
+        # stride, so the whole padded track is encoded once and every
+        # window gathers its frames' features. As in the JAX engine,
+        # interior windows then see real neighbour frames in the
+        # temporal convolutions where the per-window path pads with
+        # zeros; a one-window track is the per-window function.
+        with profiling.span("engine.forward", device=self.device):
+            v_feat, v_map = self._encode_track(on, n_pad)
+            feats = {d: (v_feat.to(d),
+                         None if v_map is None else v_map.to(d))
+                     for d in self._replicas}
+
+        def score(model, dev, lo, hi):
+            starts_d, mel = inputs(dev, lo, hi)
+            with profiling.span("engine.forward", device=dev):
+                idx = window_idx(starts_d, dev)
+                vf, vm = feats[dev]
+                return model.score_encoded(
+                    vf[idx], None if vm is None else vm[idx],
+                    on[dev][idx].float() / 255.0, mel)
+
+        return self._over_rows(bucket, score)
 
     def _encode_track(self, on: Dict[torch.device, torch.Tensor],
                       n_pad: int):

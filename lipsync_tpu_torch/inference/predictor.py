@@ -244,7 +244,7 @@ class Predictor:
 
         def drain_one() -> None:
             dev, size = pending.pop(0)
-            logits = dev[:size].float().cpu().numpy()
+            logits = self.engine.read_back(dev, size)
             probs.extend(float(p) for p in self.engine.calibrator(logits))
 
         group_v: List[np.ndarray] = []

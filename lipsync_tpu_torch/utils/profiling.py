@@ -14,7 +14,8 @@ profiler's timeline and a :class:`SpanRecord` kept in memory, timed by
 of the trace can place each record beside the kernels. With ``device=`` a
 CUDA device, a span also brackets the work enqueued inside it on that
 device's current stream with a pair of timing events, resolved only when
-:func:`records` is read.
+:func:`records` is read; :func:`device_start` moves the first of them to
+a later point of the span.
 """
 
 from __future__ import annotations
@@ -131,6 +132,18 @@ def count(name: str, n: int) -> None:
         return
     with _recorder.lock:
         _recorder.counters[name] = _recorder.counters.get(name, 0) + int(n)
+
+
+def device_start() -> None:
+    """Start the device time of the innermost span open in this thread
+    here, on its stream, while a profiler session is active: what the span
+    did on the host before (staging a copy) is not counted as device
+    time."""
+    if not _ap._is_profiler_enabled:
+        return
+    stack = _recorder.stack()
+    if stack and stack[-1].events is not None:
+        stack[-1].events[0].record(stack[-1].stream)
 
 
 def current() -> Optional[_Span]:

@@ -5,6 +5,10 @@ Tolerances: crops atol 1e-5; alignment exact; calibrated probabilities
 1e-7; engine logits atol 1e-4.
 """
 
+import itertools
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +23,7 @@ from lipsync_tpu.preprocessing.video import (
 )
 from lipsync_tpu_torch.inference.calibration import Calibrator
 from lipsync_tpu_torch.inference.engine import ScoringEngine, load_engine
+from lipsync_tpu_torch.inference.staging import StagingRing
 from lipsync_tpu_torch.inference.policy import align_audio_chunk
 from lipsync_tpu_torch.preprocessing.audio import preprocess_audio_pcm
 from lipsync_tpu_torch.preprocessing.video import _bucket, crop_track_on_device
@@ -348,3 +353,237 @@ def test_spans_and_upload_bytes_under_a_profiler(engines, track):
     # The track path uploads its crops padded to 8 * 2^k frames per group.
     crop_bytes = 3 * 64 * 32 * 32 * 3 if track else 0
     assert bytes_ == sum(buckets) * window_bytes + crop_bytes
+
+
+# ── the pinned staging ring's bookkeeping, driven with fake events ────────
+
+
+class _FakeLink:
+    """A :class:`CudaLink` with CPU buffers and events that only log. It
+    checks, as the ring calls it, that a pinned buffer is rewritten only
+    after the host waited on the event of the copy that last read it, and
+    a device buffer only after the copy stream waited on the event
+    recorded after its last read (``read`` stands for a forward)."""
+
+    copy_stream = "copy"
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.ids = itertools.count()
+        self.synced, self.waited = set(), {}
+        self.copied_from, self.consumed = {}, {}
+        self.unread_reads = {}  # stream -> device buffers read since
+        self.last_copy = {}  # thread -> the pinned buffer it copied last
+        self.faults = []
+
+    @staticmethod
+    def buf(t):
+        return t.untyped_storage().data_ptr()
+
+    @staticmethod
+    def covered(event, done):
+        """Whether waiting on ``done`` covers ``event``: an event of the
+        same stream recorded no earlier (a stream runs in order)."""
+        return any(d[1] == event[1] and d[0] >= event[0] for d in done)
+
+    def fresh(self, t):
+        """A new buffer has no history, at whatever address it lands."""
+        with self.lock:
+            self.copied_from.pop(self.buf(t), None)
+            self.consumed.pop(self.buf(t), None)
+        return t
+
+    def host(self, nbytes):
+        return self.fresh(torch.full((nbytes,), 7, dtype=torch.uint8))
+
+    def device_buffer(self, nbytes):
+        return self.fresh(torch.full((nbytes,), 9, dtype=torch.uint8))
+
+    def event(self, stream):
+        with self.lock:
+            e = (next(self.ids), stream)
+            src = self.last_copy.pop(threading.get_ident(), None)
+            if stream == self.copy_stream and src is not None:
+                self.copied_from[src] = e
+            for d in self.unread_reads.pop(stream, ()):
+                self.consumed[d] = e
+            return e
+
+    def wait(self, stream, event):
+        with self.lock:
+            self.waited.setdefault(stream, set()).add(event)
+
+    def sync(self, event):
+        with self.lock:
+            self.synced.add(event)
+
+    def stage(self, dst, src):
+        with self.lock:
+            e = self.copied_from.get(self.buf(dst))
+            if e is not None and not self.covered(e, self.synced):
+                self.faults.append("pinned rewritten before its copy")
+        dst.copy_(src)
+
+    def copy(self, dst, src):
+        with self.lock:
+            e = self.consumed.get(self.buf(dst))
+            if e is not None and not self.covered(
+                    e, self.waited.get("copy", ())):
+                self.faults.append("device rewritten before its read")
+            self.last_copy[threading.get_ident()] = self.buf(src)
+        dst.copy_(src)
+
+    def read(self, stream, slot, views):
+        """A forward on ``stream``: it must wait for the slot's copy."""
+        with self.lock:
+            if not self.covered(slot.copied, self.waited.get(stream, ())):
+                self.faults.append("read before the copy's event")
+            self.unread_reads.setdefault(stream, []).append(
+                self.buf(views[0]))
+        return [v.clone() for v in views]
+
+
+def _group(rng, n):
+    """Crops and mel as a dispatch hands them over (the mel's new last
+    axis has numpy's stride 0)."""
+    return [(rng.rand(n, 4, 6, 6, 3) * 255).astype(np.uint8),
+            rng.rand(n, 5, 7).astype(np.float32)[..., None]]
+
+
+def _use(ring, slot, arrays, stream="compute"):
+    """What a dispatch does with a slot: fill, wait, read, release."""
+    link = ring.link
+    before = (slot.device, slot.consumed)
+    views = ring.fill(slot, arrays)
+    if slot.device is not before[0] and before[1] is not None:
+        # A device buffer is dropped only once its last read was waited on.
+        assert link.covered(before[1], link.synced)
+    ring.ready(slot, stream)
+    got = link.read(stream, slot, views)
+    ring.release(slot, stream)
+    for g, v, a in zip(got, views, arrays):
+        np.testing.assert_array_equal(g.numpy(), a)
+        # The strides ``.to(device)`` would give: kernels may pick by them.
+        assert v.stride() == torch.from_numpy(a).stride()
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3])
+def test_staging_ring_waits_before_each_rewrite(slots):
+    """Rings of one slot, of the engine's two and of three: one caller
+    streaming ragged groups (growing a slot where a group
+    is larger than any it held), in and out of inference mode, then
+    callers that hold several slots at once: every pinned and device
+    rewrite waits on the right event, each
+    read sees its own group, and ``acquire`` gives None while every slot
+    is held."""
+    link = _FakeLink()
+    ring = StagingRing(slots, link)
+    rng = np.random.RandomState(slots)
+    for i, n in enumerate((3, 8, 8, 1, 8, 5, 8, 16, 2, 16, 16, 7)):
+        # Callers run under inference mode (a shard's call) or not (a
+        # track's crops): slots made in the one are rewritten in the other.
+        with torch.inference_mode(i < 4 or i % 2 == 0):
+            _use(ring, ring.acquire(), _group(rng, n))
+    held = [ring.acquire() for _ in range(slots)]
+    assert all(s is not None for s in held)
+    assert len({id(s) for s in held}) == slots
+    assert ring.acquire() is None
+    for s in reversed(held):
+        _use(ring, s, _group(rng, int(rng.randint(1, 20))))
+    assert not link.faults
+    assert not any(s.held for s in ring.slots)
+
+
+def test_staging_ring_fake_link_sees_a_missing_wait():
+    """The checks above catch a ring that skips its waits."""
+    link = _FakeLink()
+    link.sync = link.wait = lambda *a: None
+    ring = StagingRing(1, link)
+    rng = np.random.RandomState(0)
+    for n in (2, 2):
+        slot = ring.acquire()
+        views = ring.fill(slot, _group(rng, n))
+        link.read("compute", slot, views)
+        ring.release(slot, "compute")
+    assert set(link.faults) == {"pinned rewritten before its copy",
+                                "device rewritten before its read",
+                                "read before the copy's event"}
+
+
+def test_staging_ring_under_concurrent_callers():
+    """Sixteen callers on one ring of the engine's two slots, switching
+    often: no rewrite skips its wait, each caller reads its own group, and
+    a caller that finds every slot held gets None (the engine's plain
+    upload) instead of waiting."""
+    link = _FakeLink()
+    ring = StagingRing(2, link)
+    errors, misses = [], []
+
+    def caller(i):
+        rng = np.random.RandomState(100 + i)
+        try:
+            for _ in range(25):
+                slot = ring.acquire()
+                if slot is None:
+                    misses.append(i)
+                    continue
+                _use(ring, slot, _group(rng, int(rng.randint(1, 12))),
+                     stream=f"compute{i % 3}")
+        except BaseException as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[0]
+    assert not link.faults
+    assert not any(s.held for s in ring.slots)
+
+
+def test_cpu_engine_uploads_and_reads_back_plainly(engines):
+    """On the CPU the engine makes no staging ring and counts no staged
+    bytes, and its logits are the plain forward's over the padded bucket,
+    bit for bit, for a group in each bucket from 1 to 256 and on the
+    track path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lipsync_tpu_torch.inference.engine import _pad_rows, _to_uint8
+
+    port, _, cfg = engines
+    rng = np.random.RandomState(18)
+    vis = rng.rand(256, 8, 32, 32, 3).astype(np.float32)
+    aud = (rng.rand(256, 80, 32) * 80 - 80).astype(np.float32)
+
+    def plain(v, a, bucket):
+        v = torch.from_numpy(_pad_rows(_to_uint8(v), bucket))
+        a = torch.from_numpy(_pad_rows(a[..., None], bucket))
+        with torch.inference_mode():
+            return port.model(v.float() / 255.0, a).numpy()
+
+    for n, bucket in ((1, 1), (2, 2), (3, 4), (5, 8), (9, 16), (17, 32),
+                      (33, 64), (65, 128), (129, 256)):
+        np.testing.assert_array_equal(port.score_logits(vis[:n], aud[:n]),
+                                      plain(vis[:n], aud[:n], bucket)[:n])
+    crops = (rng.rand(19, 32, 32, 3) * 255).astype(np.uint8)
+    starts = [0, 5, 11]
+    tracked = port.score_track_logits(crops, starts, aud[:3])
+    windows = np.stack([_pad_rows(crops, 32)[s:s + 8] for s in starts])
+    np.testing.assert_array_equal(
+        tracked, plain(windows.astype(np.float32) / 255, aud[:3], 4)[:3])
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        port.score_logits(vis[:3], aud[:3])
+    counters = profiling.counters()
+    profiling.clear()
+    assert counters["engine.upload_bytes"] > 0
+    assert "engine.upload_staged_bytes" not in counters
+    assert port._rings == {}

@@ -270,3 +270,28 @@ def test_counts_and_ids_survive_many_threads(recorder):
     assert len(recs) == n_threads * per
     assert len({r.id for r in recs}) == len(recs)
     assert all(r.parent is None for r in recs)
+
+
+def test_device_start_restarts_the_innermost_device_span(recorder):
+    """``device_start`` records the first timing event of the innermost
+    open span again, on that span's stream, and does nothing to a span
+    without events or with no profiler session."""
+    log = []
+
+    class Event:
+        def __init__(self, name):
+            self.name = name
+
+        def record(self, stream):
+            log.append((self.name, stream))
+
+    profiling.device_start()  # no session: a no-op
+    with _cpu_profile():
+        with profiling.span("outer") as outer:
+            outer.events, outer.stream = (Event("start"), Event("end")), "s"
+            with profiling.span("host"):
+                profiling.device_start()  # innermost has no events
+            assert log == []
+            profiling.device_start()
+            assert log == [("start", "s")]
+            outer.events = None  # nothing left to resolve on the CPU
