@@ -44,7 +44,7 @@ in device order, as the JAX engine's batch sharding does. The per-window
 track path uploads the crops to every device and shards the windows. Under
 shared encoding the track's frames shard instead, padded to a multiple of
 the mesh: each shard encodes its frames plus a halo of the visual
-encoder's temporal reach (``VisualEncoder.temporal_halo``) and keeps its
+encoder's temporal reach (the model's ``temporal_halo``) and keeps its
 own, which is the whole-track encode; the windows then shard over the
 gathered features. Under ``quantized_int8`` the shards run in lockstep, one
 thread each, so that every convolution's activation scale is the abs-max of
@@ -52,6 +52,15 @@ the whole bucket (``parallel.mesh.Lockstep``).
 
 The engine turns TF32 off for the process (``utils/device.disable_tf32``):
 its fp32 stages run in fp32 on CUDA.
+
+The model follows the type of ``config``: ``LipSyncModel`` for a
+``ModelConfig``, AV-HuBERT LARGE with its detection head
+(``models/avhubert.py``) for an ``AVHubertConfig``. The model says how it
+takes the host's crops (its ``host_pixels``, applied after the uint8
+rounding): ``LipSyncModel`` as they come, AV-HuBERT grey, RGB ones turned
+grey with cv2's luma weights. ``quantized_int8`` and ``fold_hf_stem``
+lower ``LipSyncModel``'s convolutions and raise ``ValueError`` with an
+``AVHubertConfig``.
 """
 
 from __future__ import annotations
@@ -61,13 +70,14 @@ import dataclasses
 import threading
 from pathlib import Path
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
-                    Tuple)
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from lipsync_tpu_torch.inference.calibration import Calibrator
 from lipsync_tpu_torch.inference.staging import CudaLink, Slot, StagingRing
+from lipsync_tpu_torch.models.avhubert import AVHubert, AVHubertConfig
 from lipsync_tpu_torch.models.bridge import (
     unwrap_state_dict,
     variables_to_state_dict,
@@ -127,7 +137,7 @@ class ScoringEngine:
     def __init__(
         self,
         variables: Mapping[str, Any],
-        config: ModelConfig = ModelConfig(),
+        config: Union[ModelConfig, AVHubertConfig] = ModelConfig(),
         calibrator: Optional[Calibrator] = None,
         use_bfloat16: Optional[bool] = None,
         mesh: Optional[Sequence[DeviceLike]] = None,
@@ -150,6 +160,11 @@ class ScoringEngine:
         if use_bfloat16 is None:
             use_bfloat16 = self.device.type == "cuda"
         dtype = torch.bfloat16 if use_bfloat16 else torch.float32
+        avhubert = isinstance(config, AVHubertConfig)
+        if avhubert and (quantized_int8 or fold_hf_stem):
+            raise ValueError(
+                "quantized_int8 and fold_hf_stem lower LipSyncModel's "
+                "convolutions; an AVHubertConfig takes neither")
         if fold_hf_stem:
             config = dataclasses.replace(config, hf_stem_fold=True)
         if quantized_int8:
@@ -157,7 +172,8 @@ class ScoringEngine:
         self.shared_visual_encoding = bool(shared_visual_encoding)
         self.quantized_int8 = bool(quantized_int8)
         self.config = config
-        self.model = LipSyncModel(config, dtype=dtype)
+        self.model = (AVHubert if avhubert else LipSyncModel)(config,
+                                                              dtype=dtype)
         self.model.load_state_dict(_as_state_dict(variables), strict=True)
         self.model.to(self.device).eval()
         self._replicas = {self.device: self.model}
@@ -294,6 +310,7 @@ class ScoringEngine:
                 if visual.dtype != np.uint8:
                     visual = (_to_uint8(visual) if self.transfer_uint8
                               else visual.astype(np.float32, copy=False))
+                visual = self.model.host_pixels(visual)
                 audio = audio.astype(np.float32, copy=False)
             as_u8 = visual.dtype == np.uint8
             leases: List[Tuple[StagingRing, Slot]] = []
@@ -403,6 +420,7 @@ class ScoringEngine:
                     audio_windows = audio_windows[..., None]
                 if crops.dtype != np.uint8:
                     crops = _to_uint8(crops)
+                crops = self.model.host_pixels(crops)
                 n_needed = max(crops.shape[0], max(starts) + chunk)
                 n_pad = chunk
                 while n_pad < n_needed:
@@ -486,7 +504,7 @@ class ScoringEngine:
             feat, fmap = self._run_shards([lambda: self.model.encode_visual(
                 on[self.device].float()[None] / 255.0)])[0]
             return feat[0], None if fmap is None else fmap[0]
-        halo = self.model.visual_encoder.temporal_halo
+        halo = self.model.temporal_halo
 
         def encode(d, lo, hi):
             a, b = max(0, lo - halo), min(n_pad, hi + halo)
@@ -540,7 +558,7 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 
 def load_engine(
     model_path: Optional[Path] = None,
-    config: ModelConfig = ModelConfig(),
+    config: Union[ModelConfig, AVHubertConfig] = ModelConfig(),
     calibrator: Optional[Calibrator] = None,
     use_bfloat16: Optional[bool] = None,
     mesh: Optional[object] = None,

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from pathlib import Path
 from time import perf_counter
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from lipsync_tpu_torch.inference.calibration import Calibrator
 from lipsync_tpu_torch.inference.engine import ScoringEngine, load_engine
 from lipsync_tpu_torch.inference.pipelined import score_long_video_pipelined
 from lipsync_tpu_torch.models import ModelConfig
+from lipsync_tpu_torch.models.avhubert import AVHubertConfig
 from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.preprocessing import ingest
 from lipsync_tpu_torch.preprocessing.audio import (
@@ -44,6 +45,10 @@ from lipsync_tpu_torch.utils.logger import get_logger
 from lipsync_tpu_torch.utils.weights import default_checkpoint
 
 logger = get_logger(__name__)
+
+
+# The detectors, each with the type of its configuration.
+MODEL_CONFIGS = {"lip_sync": ModelConfig, "avhubert_large": AVHubertConfig}
 
 
 @dataclasses.dataclass
@@ -130,8 +135,17 @@ class PredictorConfig:
     # timeline only follows who is SPEAKING in that mode); "on"/"off"
     # force it. The alignment default stays reference-parity.
     turn_aware_aggregation: str = "auto"
+    # The detector: "lip_sync" (LipSyncModel, a ModelConfig) or
+    # "avhubert_large" (AV-HuBERT LARGE with a detection head,
+    # models/avhubert.py, an AVHubertConfig; grey crops and a 26-bin
+    # log-mel). Not in the JAX package.
+    architecture: str = "lip_sync"
 
     def __post_init__(self):
+        if self.architecture not in MODEL_CONFIGS:
+            raise ValueError(f"architecture must be one of "
+                             f"{tuple(MODEL_CONFIGS)}, got "
+                             f"{self.architecture!r}")
         if self.speaking_score_mode not in {"alignment", "articulation"}:
             self.speaking_score_mode = "alignment"
         if self.turn_aware_aggregation not in {"auto", "on", "off"}:
@@ -169,12 +183,21 @@ class Predictor:
         self,
         model_path: Optional[Path] = None,
         config: PredictorConfig = PredictorConfig(),
-        model_config: ModelConfig = ModelConfig(),
+        model_config: Union[ModelConfig, AVHubertConfig, None] = None,
         engine: Optional[ScoringEngine] = None,
         detector_backend=None,
         device: DeviceLike = None,
     ):
         self.cfg = config
+        # The architecture picks the configuration's type; None is its
+        # default (ModelConfig() or AVHubertConfig()).
+        kind = MODEL_CONFIGS[config.architecture]
+        if model_config is None:
+            model_config = kind()
+        elif not isinstance(model_config, kind):
+            raise ValueError(
+                f"architecture {config.architecture!r} takes a "
+                f"{kind.__name__}, got {type(model_config).__name__}")
         self.model_config = model_config
         self.backend = detector_backend
         # Crops and the log-mel run here; None is the card (raises when
@@ -338,8 +361,10 @@ class Predictor:
         erroring the request (the reference 500s here — an intentional
         robustness improvement, consistent with its VAD all-speech
         fallback, audio.py:232-237)."""
+        n_mels = self.model_config.mel_bins
         try:
-            return preprocess_audio(audio_path, target_frames=target_frames,
+            return preprocess_audio(audio_path, n_mels=n_mels,
+                                    target_frames=target_frames,
                                     device=self.device)
         except ValueError:
             info = ingest.probe(audio_path)
@@ -349,7 +374,8 @@ class Predictor:
                 audio_path, dur,
             )
             silence = np.zeros(int(dur * 16000), np.float32)
-            return preprocess_audio_pcm(silence, target_frames=target_frames,
+            return preprocess_audio_pcm(silence, n_mels=n_mels,
+                                        target_frames=target_frames,
                                         device=self.device)
 
     # ── Public API ────────────────────────────────────────────────────────

@@ -194,14 +194,17 @@ def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Numpy-made weights for every entry of ``model.state_dict()``:
     fan-in-scaled normal conv/linear weights, small biases, BatchNorm scales
     in [0.5, 1.5] with running means ~N(0, 0.1) and variances in [0.5, 1.5],
-    LayerNorm scales in [0.8, 1.2], and the Laplacian's init plus noise so
-    its 3->3 channel mix is non-trivial."""
+    LayerNorm scales in [0.8, 1.2], the Laplacian's init plus noise so
+    its 3->3 channel mix is non-trivial, PReLU slopes in [0.1, 0.4] and a
+    weight norm's ``g`` (``weight_g``) in [1, 2]."""
     rng = np.random.default_rng(seed)
     norm_prefixes = {
         name: isinstance(m, nn.LayerNorm)
         for name, m in model.named_modules()
         if isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm))
     }
+    prelus = {name for name, m in model.named_modules()
+              if isinstance(m, nn.PReLU)}
     out: Dict[str, torch.Tensor] = {}
     for key, ref in model.state_dict().items():
         prefix, _, leaf = key.rpartition(".")
@@ -218,6 +221,10 @@ def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
                 v = rng.uniform(0.5, 1.5, shape)
             else:  # bias, running_mean
                 v = rng.normal(0.0, 0.1, shape)
+        elif prefix in prelus:
+            v = rng.uniform(0.1, 0.4, shape)
+        elif leaf == "weight_g":
+            v = rng.uniform(1.0, 2.0, shape)
         elif leaf == "cls_token":
             v = rng.normal(0.0, 0.02, shape)
         elif leaf.endswith("bias"):

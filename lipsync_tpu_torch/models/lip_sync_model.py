@@ -112,6 +112,17 @@ class LipSyncModel(nn.Module):
             head_in = e
         self.classifier = ClassificationHead(head_in, 128, cfg.dropout)
 
+    @property
+    def temporal_halo(self) -> int:
+        """Frames on each side of a frame that its visual features depend
+        on (``VisualEncoder.temporal_halo``)."""
+        return self.visual_encoder.temporal_halo
+
+    @staticmethod
+    def host_pixels(crops):
+        """The host's crops as this model takes them: RGB, unchanged."""
+        return crops
+
     def forward(
         self,
         visual: torch.Tensor,

@@ -5,7 +5,8 @@ overrides: ``MODEL_PATH``, ``SQLITE_DB_URL``.
 
 One field differs: ``device`` is where the predictor runs, ``"cuda"`` by
 default (``"cpu"`` on request), and is passed to ``Predictor(device=...)``;
-the JAX package's is an informational ``"tpu"``.
+the JAX package's is an informational ``"tpu"``. One is the port's own:
+``architecture`` picks the detector (``PredictorConfig.architecture``).
 """
 
 from __future__ import annotations
@@ -76,6 +77,9 @@ class Settings(Model):
     coalesce_max_wait_ms: float = 2.0
     # Speaking-activity semantics (PredictorConfig.speaking_score_mode).
     speaking_score_mode: str = "alignment"
+    # The detector, "lip_sync" or "avhubert_large"
+    # (PredictorConfig.architecture).
+    architecture: str = "lip_sync"
     sqlite_db_path: str = "./jobs.db"
     run_embedded_worker: bool = True
     worker_poll_interval_sec: float = 1.0
@@ -117,6 +121,7 @@ class Settings(Model):
             quantized_int8=self.quantized_int8,
             fold_hf_stem=self.fold_hf_stem,
             speaking_score_mode=self.speaking_score_mode,
+            architecture=self.architecture,
         )
 
 

@@ -103,12 +103,18 @@ TORCH_STATE = ("JAX's explicit variables, state, opt_state, params and rng "
                "become torch state: the module's parameters and state dict, "
                "the optimizer object and torch.Generator seeds")
 TORCH_DTYPE = "jnp.float32 -> torch.float32"
+ARCHITECTURE = ("the port's second detector, AV-HuBERT LARGE "
+                "(models/avhubert.py), which the JAX package lacks, is "
+                "chosen by 'architecture'")
 
 # (JAX module, JAX name) -> how the port's parameters differ by idiom.
 IDIOMS = {
     **{("inference/engine.py", n): Idiom(DEVICE, add=("device",))
        for n in ("ScoringEngine", "load_engine")},
-    ("inference/predictor.py", "Predictor"): Idiom(DEVICE, add=("device",)),
+    ("inference/predictor.py", "Predictor"):
+        Idiom(DEVICE + "; " + ARCHITECTURE + ", whose configuration is "
+              "model_config's default", add=("device",),
+              defaults=(("model_config", "None"),)),
     **{("preprocessing/audio.py", n): Idiom(DEVICE, add=("device",))
        for n in ("preprocess_audio", "preprocess_audio_pcm")},
     **{("preprocessing/video.py", n): Idiom(DEVICE, add=("device",))
@@ -129,7 +135,10 @@ IDIOMS = {
         Idiom(DEVICE + "; the mesh's device type", add=("device_type",)),
     ("serving/config.py", "Settings"):
         Idiom("the service's device: 'cuda' where the JAX package's is "
-              "'tpu'", defaults=(("device", "'cuda'"),)),
+              "'tpu'; " + ARCHITECTURE, add=("architecture",),
+              defaults=(("device", "'cuda'"),)),
+    ("inference/predictor.py", "PredictorConfig"):
+        Idiom(ARCHITECTURE, add=("architecture",)),
     **{("models/" + m, n): Idiom(FLAX_DTYPE, drop=("dtype",))
        for m, n in (("artifact.py", "ArtifactDetector"),
                     ("artifact.py", "HighFrequencyDetector"),

@@ -185,4 +185,6 @@ def test_predictor_from_a_weights_file(engines, clips, tmp_path):
          "detection_stride": 0, "data_parallel_devices": -3},
 ])
 def test_predictor_config_matches_jax(knobs):
-    assert vars(PredictorConfig(**knobs)) == vars(JConfig(**knobs))
+    got = vars(PredictorConfig(**knobs))
+    assert got.pop("architecture") == "lip_sync"  # the port's own
+    assert got == vars(JConfig(**knobs))

@@ -284,6 +284,7 @@ def test_get_settings_flagship_fallback(tmp_path, monkeypatch, sidecar):
         p, j = pconfig.get_settings(), jconfig.get_settings()
         got = {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
         assert got.pop("device") == "cuda"
+        assert got.pop("architecture") == "lip_sync"  # the port's own
         assert got == {k: v for k, v in j.model_dump().items()
                        if k != "device"}
         return p
@@ -305,7 +306,11 @@ def test_get_settings_flagship_fallback(tmp_path, monkeypatch, sidecar):
 
 
 def test_settings_fields_and_defaults_match_jax():
+    """Every JAX field, in order and with its default; the port's own
+    ``architecture`` (the detector, LipSyncModel by default) besides."""
     port = [(f.name, f.default) for f in dataclasses.fields(Settings)]
+    assert port.pop([n for n, _ in port].index("architecture")) == (
+        "architecture", "lip_sync")
     jax_fields = [(k, v.default)
                   for k, v in jconfig.Settings.model_fields.items()]
     assert [n for n, _ in port] == [n for n, _ in jax_fields]
@@ -325,6 +330,7 @@ def test_settings_fields_and_defaults_match_jax():
 def test_to_predictor_config_matches_jax(knobs):
     got = vars(Settings(**knobs).to_predictor_config())
     want = vars(jconfig.Settings(**knobs).to_predictor_config())
+    assert got.pop("architecture") == "lip_sync"  # the port's own
     assert got == want
 
 
