@@ -62,6 +62,23 @@ each printed as one JSON line:
    and ``ResidualBlockND`` with ``lowering="shift_matmul"`` and
    ``ConvBNAct`` and ``max_pool_same`` at unequal padding pairs, on the
    card against the CPU (float64 within 1e-6; fp32 within 1e-5);
+4d. K5 (AV-HuBERT's 3D stem: conv, BatchNorm, PReLU, max-pool in one
+   launch) at ``K5_MAIN`` (the AV-HuBERT bulk cell's group: 256 windows
+   of 32 frames of 88 x 88) and at the ragged ``K5_ODD``, against the
+   module chain (``ResEncoder.frontend3D``) on the card: bit-equal on
+   pixels of eighths and weights of sixteenths (every fp32 sum exact);
+   on random inputs, the share of pooled values that differ (<= 1e-3) and
+   the widest difference, each within ``av_stem.sum_order_bound`` (the
+   card test's tolerance); blocks per SM (>= 2 in both staging variants).
+   At ``K5_MAIN`` its time per call (CUDA events) and device time
+   (profiler) beside its bound (the bf16 tensor-core rate), the twin's
+   time (``av_stem_plain`` on the card) and the cuDNN chain with the copy
+   into the trunk's frames that K5 replaces (``library_ms``);
+4e. K5 on the AV-HuBERT bulk cell's path: ``ScoringEngine`` with
+   ``AVHubertConfig()`` scores two groups of 256 windows on seeded,
+   BatchNorm-calibrated weights; one launch of K5 a group (the count the
+   ``kernels`` line gives K5), and logits within 0.03125 (two bf16 steps)
+   of the same engine with the module chain in K5's place;
 5. three requests at the full width of ``ModelConfig()``, each crop ->
    log-mel (K1) -> align -> engine (K2 inside): R1 32 frames of 360x640 +
    2.2 s of PCM through ``score_probs``; R2 150 frames (10 s at 15 fps, 15
@@ -4794,6 +4811,195 @@ def scripts_phase(dev, cfg, smi, weights, record) -> dict:
 UNEQUAL_PAD = ((0, 1), (2, 1), (1, 0))
 
 
+K5_KERNELS = ("av_stem_kernel",)
+# K5 at the AV-HuBERT bulk cell's group (B, T, H, W) and at ragged shapes:
+# partial tiles at the bottom and right, odd widths (its pixel-by-pixel
+# staging), one frame, frames of a few pixels.
+K5_MAIN = (256, 32, 88, 88)
+K5_ODD = ((3, 5, 17, 23), (1, 1, 9, 9), (2, 3, 40, 50), (1, 4, 31, 7))
+K5_ENGINE_GROUPS = 2
+
+
+def k5_phase(dev, time_ms) -> dict:
+    """Phase 4d: K5 against the module chain it replaces, and its times at
+    ``K5_MAIN`` (see the module's docstring). Returns the main shape's
+    row, with the launches of this phase's own calls."""
+    import torch
+
+    from lipsync_tpu_torch.models.avhubert import ResEncoder
+    from lipsync_tpu_torch.ops.kernels import av_stem as k5
+    from lipsync_tpu_torch.utils.device import card_peaks
+
+    card = card_peaks(torch.cuda.get_device_name(dev))[1]
+    mem_bw, bf16_peak = card.bytes_per_s, card.bf16
+    per_sm = {"aligned": k5.blocks_per_sm(True),
+              "pixelwise": k5.blocks_per_sm(False)}
+    check(min(per_sm.values()) >= 2, f"K5 fits < 2 blocks per SM: {per_sm}")
+    gen = torch.Generator().manual_seed(SEED)
+    launches_before = k5.launches
+
+    def stem(dyadic):
+        enc = ResEncoder()
+        conv, bn, prelu, _ = enc.frontend3D
+        with torch.no_grad():
+            w = (torch.randint(-4, 5, k5.WEIGHT_SHAPE, generator=gen) / 16
+                 if dyadic else
+                 torch.randn(k5.WEIGHT_SHAPE, generator=gen) / 16)
+            conv.weight.copy_(w)
+            bn.running_mean.copy_(torch.randn(64, generator=gen) * 0.5)
+            bn.running_var.copy_(torch.rand(64, generator=gen) * 2 + 0.05)
+            bn.weight.copy_(torch.randn(64, generator=gen) * 0.5 + 1)
+            bn.bias.copy_(torch.randn(64, generator=gen) * 0.2)
+            prelu.weight.copy_(torch.rand(64, generator=gen) * 0.5)
+        conv.to(torch.bfloat16)
+        prelu.to(torch.bfloat16)
+        return enc.eval().to(dev)
+
+    def pixels(shape, dyadic):
+        b, t, h, w = shape
+        if dyadic:
+            x = torch.randint(-8, 9, (b, 1, t, h, w), generator=gen) / 8
+        else:
+            x = (torch.rand(b, 1, t, h, w, generator=gen) - 0.421) / 0.165
+        return x.to(torch.bfloat16).to(dev)
+
+    exact, rand = stem(True), stem(False)
+    exact_ops = k5.operands(exact.frontend3D)
+    ops = k5.operands(rand.frontend3D)
+    rows = {}
+    with torch.inference_mode():
+        for shape in (K5_MAIN, *K5_ODD):
+            x = pixels(shape, True)
+            check(torch.equal(k5.av_stem(x, *exact_ops), exact.frontend3D(x)),
+                  f"K5 vs the chain on exact sums at {shape}")
+            # Random inputs: the sums' order moves a conv output across a
+            # bf16 rounding boundary now and then (the card test's
+            # tolerance, av_stem.sum_order_bound).
+            x = pixels(shape, False)
+            got, want = k5.av_stem(x, *ops), rand.frontend3D(x)
+            diff = (got.float() - want.float()).abs()
+            del got, want
+            used = (diff / k5.sum_order_bound(x, *ops)).max()
+            row = {"shape": list(shape), "exact_sums_bit_equal": True,
+                   "share_differing": float((diff > 0).float().mean()),
+                   "widest_diff": float(diff.max()),
+                   "tolerance_used": float(used)}
+            del diff
+            check(row["share_differing"] <= 1e-3
+                  and row["tolerance_used"] <= 1.0,
+                  f"K5 vs the chain on random inputs at {shape}: {row}")
+            rows[shape] = row
+            emit({"phase": "k5_av_stem", **row})
+
+        b, t, h, w = K5_MAIN
+        x = pixels(K5_MAIN, False)
+        ho, wo = k5.out_size(h), k5.out_size(w)
+        hp, wp = k5.out_size(ho), k5.out_size(wo)
+        flops = 2 * 245 * 64 * b * t * ho * wo
+        n_bytes = 2 * (b * t * h * w + b * t * 64 * hp * wp)
+        bound_ms = 1e3 * max(n_bytes / mem_bw, flops / bf16_peak)
+
+        def kernel():
+            return k5.av_stem(x, *ops)
+
+        def twin():
+            return k5.av_stem_plain(x, *ops)
+
+        def library():  # the chain and the copy into the trunk's frames
+            return rand.frontend3D(x).transpose(1, 2).reshape(
+                b * t, 64, hp, wp)
+
+        k_ms = time_ms(kernel, iters=10)
+        p_ms, l_ms = time_ms(twin, iters=10), time_ms(library, iters=10)
+        row = rows[K5_MAIN]
+        row.update({
+            "blocks_per_sm": per_sm, "gflop": flops / 1e9,
+            "mbytes": n_bytes / 1e6, "bound_ms": bound_ms,
+            "bound_by": ("bytes" if n_bytes / mem_bw >= flops / bf16_peak
+                         else "operations"),
+            "bound_basis": "bf16 tensor cores",
+            "timer": "cuda events per call, host launch included",
+            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_share": bound_ms / k_ms,
+            "kernel_device_ms": device_ms(kernel, K5_KERNELS, iters=5),
+            "library_device_ms": device_ms(library, None, iters=5),
+            "tflops": flops / k_ms / 1e9})
+        row["device_bound_share"] = bound_ms / row["kernel_device_ms"]
+    row["phase_launches"] = k5.launches - launches_before
+    emit({"phase": "k5_av_stem_main", **row})
+    return row
+
+
+def k5_engine_phase(dev) -> dict:
+    """Phase 4e: K5 on the AV-HuBERT bulk cell's path. ``ScoringEngine``
+    with ``AVHubertConfig()`` (LARGE, bf16 on the card, groups of
+    ``K5_MAIN[0]``) on seeded weights whose BatchNorm statistics are one
+    fp32 training-mode forward's over 32 of the windows scores
+    ``K5_ENGINE_GROUPS`` groups of windows made as the cell makes them
+    (grey uint8 crops darkened per window, dB log-mel): K5's launch count,
+    set to 0 just before, rises by one a group, and the logits lie within
+    two bf16 steps (0.03125; the logits are of order 1-4) of the same
+    engine's with the module chain in K5's place."""
+    import numpy as np
+    import torch
+    import torch.nn as nn
+
+    from lipsync_tpu_torch.inference.engine import ScoringEngine
+    from lipsync_tpu_torch.models import avhubert as avhubert_mod
+    from lipsync_tpu_torch.models import seeded_state_dict
+    from lipsync_tpu_torch.ops.kernels import av_stem as k5
+
+    cfg = avhubert_mod.AVHubertConfig()
+    group = K5_MAIN[0]
+    n = K5_ENGINE_GROUPS * group
+    rng = np.random.default_rng(SEED)
+    shape = (n, cfg.video_frames, cfg.crop_size, cfg.crop_size)
+    level = rng.integers(64, 257, (n, 1, 1, 1))
+    visual = (rng.integers(0, 256, shape) * level // 256).astype(np.uint8)
+    mel = (-80 * rng.random((n, cfg.mel_bins, cfg.audio_frames))).astype(
+        np.float32)
+
+    model = avhubert_mod.AVHubert(cfg)
+    model.load_state_dict(seeded_state_dict(model, SEED))
+    model.to(dev)
+    for m in model.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.reset_running_stats()
+            m.momentum = None  # cumulative: one batch gives its statistics
+    model.train()
+    with torch.no_grad():
+        model(torch.from_numpy(visual[:32]).to(dev).float() / 255,
+              torch.from_numpy(mel[:32]).to(dev))
+    weights = {k: v.detach().cpu().clone()
+               for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+
+    engine = ScoringEngine(weights, cfg, max_batch=group, device=dev)
+    k5.launches = 0
+    got = engine.score_logits(visual, mel)
+    launches = k5.launches
+    kernel_takes = avhubert_mod.stem_takes_kernel
+    avhubert_mod.stem_takes_kernel = lambda x, module: False
+    try:
+        want = engine.score_logits(visual, mel)
+    finally:
+        avhubert_mod.stem_takes_kernel = kernel_takes
+    row = {"groups": K5_ENGINE_GROUPS, "windows": n, "launches": launches,
+           "chain_launches": k5.launches - launches,
+           "logit_gap": float(np.abs(got - want).max()),
+           "share_differing": float(np.mean(got != want)),
+           "logit_range": [float(want.min()), float(want.max())]}
+    del engine
+    torch.cuda.empty_cache()
+    emit({"phase": "k5_engine", **row})
+    check(launches == K5_ENGINE_GROUPS and row["chain_launches"] == 0,
+          f"K5 launches on the engine's path: {row}")
+    check(row["logit_gap"] <= 0.03125,
+          f"AV-HuBERT logits with K5 vs the chain: {row}")
+    return row
+
+
 def layer_forms_phase(dev) -> dict:
     """Phase 4c: the layer forms that the JAX package's building blocks
     take, on the card against the same modules on the CPU (seeded weights):
@@ -5637,6 +5843,14 @@ def main() -> None:
     # ── 4c. the layer forms: shift_matmul, (lo, hi) padding pairs ─────
     layer_forms_phase(dev)
 
+    # ── 4d. K5, AV-HuBERT's 3D stem, vs the module chain ──────────────
+    torch.cuda.empty_cache()
+    k5m = k5_phase(dev, time_ms)
+    torch.cuda.empty_cache()
+
+    # ── 4e. K5 on the AV-HuBERT bulk cell's path ──────────────────────
+    k5e = k5_engine_phase(dev)
+
     engines = {name: (ScoringEngine(w, cfg),  # bf16 on CUDA by default
                       ScoringEngine(w, cfg, use_bfloat16=False))
                for name, w in weight_sets.items()}
@@ -5964,6 +6178,27 @@ def main() -> None:
                         k3_summary["k4_bound_ms_per_forward"]},
          # no single PyTorch call; plain_ms is the torch chain it replaces
          "library_ms": None},
+        {"name": "av_stem", "route": "cuda",
+         "source": "lipsync_tpu_torch/csrc/av_stem.cu",
+         # no TPU counterpart: AV-HuBERT exists only in the port
+         "replaces": "lipsync_tpu_torch/models/avhubert.py::ResEncoder."
+                     "frontend3D (cuDNN conv, BatchNorm, PReLU, max-pool)",
+         # phase 4e's engine run, one a group; phase 4d's own calls apart
+         "launches": k5e["launches"], "groups": k5e["groups"],
+         "check_launches": k5m["phase_launches"],
+         "shape": k5m["shape"], "timer": k5m["timer"],
+         "share_differing": k5m["share_differing"],
+         "widest_diff": k5m["widest_diff"],
+         "ms": k5m["kernel_ms"], "plain_ms": k5m["plain_ms"],
+         "bound_ms": k5m["bound_ms"], "bound_by": k5m["bound_by"],
+         "bound_basis": k5m["bound_basis"],
+         "library_ms": k5m["library_ms"],
+         "library": "ResEncoder.frontend3D and the copy into (B * T, 64, "
+                    "Hp, Wp)",
+         "device": {"timer": "torch.profiler kernel time",
+                    "ms": k5m["kernel_device_ms"],
+                    "library_ms": k5m["library_device_ms"],
+                    "bound_share": k5m["device_bound_share"]}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,7 +18,8 @@ The forward:
 1. Pixels: the centre ``H - 2 * crop_margin`` square, ``(x - 0.421) /
    0.165``.
 2. Video (``feature_extractor_video``): Conv3d 1->64 k(5,7,7) s(1,2,2),
-   BatchNorm, PReLU, max-pool (1,3,3)/(1,2,2); then each frame through a
+   BatchNorm, PReLU, max-pool (1,3,3)/(1,2,2) (one kernel, K5, in bf16 on
+   the card: :meth:`ResEncoder.stem`); then each frame through a
    ResNet-18 trunk (BasicBlocks [2, 2, 2, 2], widths 64-512, PReLU),
    average-pooled to 512 and projected to the encoder's width.
 3. Audio (``feature_extractor_audio``): every 4 consecutive mel frames
@@ -58,6 +59,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lipsync_tpu_torch.ops.kernels import av_stem
 from lipsync_tpu_torch.utils import profiling
 
 MEAN, STD = 0.421, 0.165  # of the grey pixels in [0, 1]
@@ -177,6 +179,14 @@ class ResNetTrunk(nn.Module):
         return x.mean(dim=(2, 3))
 
 
+def stem_takes_kernel(x: torch.Tensor, module: nn.Module) -> bool:
+    """Whether K5 runs the 3D stem: a bf16 CUDA input, the module in eval
+    mode and no gradient recorded. Everything else (the CPU, fp32,
+    training) runs the module chain."""
+    return (x.is_cuda and x.dtype == torch.bfloat16 and not module.training
+            and not torch.is_grad_enabled())
+
+
 class ResEncoder(nn.Module):
     """The 3D stem over the clip, then the trunk on each frame."""
 
@@ -190,9 +200,22 @@ class ResEncoder(nn.Module):
             nn.MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)))
         self.trunk = ResNetTrunk()
 
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """``frontend3D``: ``(B, 1, T, H, W)`` -> ``(B, C, T, h, w)``, by
+        K5 where :func:`stem_takes_kernel` says so (a view of the ``(B, T,
+        C, h, w)`` frames it writes), else by the module chain."""
+        if not stem_takes_kernel(x, self):
+            return self.frontend3D(x)
+        b, _, t, h, w = x.shape
+        profiling.count("avhubert.stem_calls", 1)
+        profiling.count("avhubert.stem_outputs",
+                        b * t * av_stem.out_size(h) * av_stem.out_size(w))
+        with profiling.span("avhubert.stem", device=x.device):
+            return av_stem.av_stem(x, *av_stem.operands(self.frontend3D))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, 1, T, H, W)`` -> ``(B, T, 512)``."""
-        x = self.frontend3D(x)  # (B, C, T, h, w)
+        x = self.stem(x)  # (B, C, T, h, w)
         b, c, t, h, w = x.shape
         x = x.transpose(1, 2).reshape(b * t, c, h, w)
         return self.trunk(x).view(b, t, -1)
