@@ -21,7 +21,8 @@
 // torch's y.float() * scale + bias then .to(dtype). An int32 output stays
 // for the exact checks. What holds the wgmma loop below that bound (about
 // a quarter of it at layer1, a third on the 128- and 256-channel 3x3x3
-// convolutions; chip_smoke.py phase 4b) is the A gather: each of the 27
+// convolutions: PERF.md's kernel table; tests/test_torch_kernels_card.py
+// holds K3 at these geometries) is the A gather: each of the 27
 // taps fetches its own copy of the input rows, so a block of 128 x 64
 // outputs at layer1 pulls 229 KB of A and 115 KB of B through L2 for 14 M
 // multiply-adds. Reusing the input rows across taps (a halo tile in shared

@@ -4,8 +4,8 @@ card.
 
     python -m lipsync_tpu_torch.tools.precision_sweep
 
-Inputs are the windows of the R2 and R3 requests that ``chip_smoke.py``
-serves (``utils/synthetic.py``, seed 0). Weights come from the seed
+Inputs are the windows of the R2 and R3 requests that
+``tests/test_torch_engine_card.py`` serves (``utils/synthetic.py``, seed 0). Weights come from the seed
 (``seeded_state_dict``), as they are and with every BatchNorm calibrated
 on R2's windows (``bn_calibrated_state_dict``); seeded logits barely vary,
 calibrated ones spread. A placement runs the named submodules under

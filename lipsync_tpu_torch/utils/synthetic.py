@@ -108,8 +108,9 @@ def request(rng: np.random.Generator, n_frames: int,
 
 
 def requests(seed: int) -> Dict[str, Request]:
-    """The three requests ``chip_smoke.py`` serves, at 15 fps: R1 32 frames
-    + 2.2 s, R2 150 frames (10 s), R3 600 frames (40 s)."""
+    """The three requests ``tests/test_torch_engine_card.py`` serves, at 15
+    fps: R1 32 frames + 2.2 s, R2 150 frames (10 s), R3 600 frames (40
+    s)."""
     rng = np.random.default_rng(seed)
     return {"R1": request(rng, 32, 2.2),
             "R2": request(rng, 150, 150 / FPS),

@@ -27,19 +27,13 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmark.reference import avhubert as ref  # noqa: E402
+from torch_card import card  # noqa: E402, F401
 
 # Ragged shapes: partial tiles at the bottom and right, odd widths (the
 # kernel's pixel-by-pixel staging), one frame, frames of a few pixels.
 RAGGED = [(3, 5, 17, 23), (1, 1, 9, 9), (2, 3, 40, 50), (1, 4, 31, 7),
           (2, 2, 96, 96)]
 CELL = (256, 32, 88, 88)
-
-
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda", 0)
 
 
 def stem(seed, device, dyadic=False):

@@ -4,7 +4,7 @@ The twin is held against ``hf_stem_fused(..., interpret=True)`` at the
 geometry of the JAX package's own kernel test (B2, T4, H16) with atol 2e-5;
 the eval-mode detector (which calls the K2 wrapper) against JAX's with
 atol 1e-4. The CUDA kernel is held against the twin on the card by
-chip_smoke.py.
+tests/test_torch_kernels_card.py.
 """
 
 import numpy as np

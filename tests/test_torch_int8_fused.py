@@ -10,9 +10,9 @@ against the JAX package and against the unfused torch chain that
   (``_runs``) covers exactly the owned values;
 - the dequantizing twin equals the unfused chain ``y.float() * scale (+
   bias)`` cast to the output dtype, bit for bit, and ``int8_conv`` equals
-  that whole chain (``chip_smoke.parent_int8_conv``, the yardstick that
-  ``chip_smoke.py`` times it against on the card) bit for bit with the same
-  strides; it stays
+  that whole chain (``torch_card.parent_int8_conv``, the yardstick that
+  ``test_torch_kernels_card.py`` holds it against on the card) bit for bit
+  with the same strides; it stays
   within 1e-6 relative of JAX's ``Int8Conv`` at ``C_in % 32 == 0``
   geometries (the ones K3 runs on ``wgmma``), with and without bias;
 - the geometry picks K3's main loop: 22 of ``ModelConfig()``'s 24 int8
@@ -34,13 +34,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from chip_smoke import parent_int8_conv
 from lipsync_tpu.models.layers import Int8Conv
 from lipsync_tpu_torch.models import LipSyncModel, ModelConfig
 from lipsync_tpu_torch.models import layers as layers_mod
 from lipsync_tpu_torch.models.layers import _INV_127, int8_conv
 from lipsync_tpu_torch.ops.kernels import int8_conv as k3
 from lipsync_tpu_torch.ops.kernels import int8_quant as k4
+from torch_card import parent_int8_conv
 
 torch.set_num_threads(1)
 

@@ -13,7 +13,11 @@ from lipsync_tpu_torch.utils.device import get_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "lipsync_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# The card tests and chip_smoke.py run where JAX is absent: they and their
+# helper import none.
+CARD_TESTS = sorted((ROOT / "tests").glob("test_torch_*_card.py"))
+SOURCES = (sorted(PKG.rglob("*.py")) + CARD_TESTS
+           + [ROOT / "tests" / "torch_card.py", ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "lipsync_tpu", "pydantic",
              "httpx", "fastapi")
 
@@ -67,8 +71,8 @@ def _rank_modules(rank, device, out):
 def test_spawned_ranks_and_chip_smoke_load_no_jax(tmp_path):
     """The ranks that ``parallel.mesh.run_group`` spawns (the data-parallel
     tests' groups, the trainer's one process per card) start clean of JAX
-    and the JAX package, and so does ``chip_smoke.py`` with the parallel
-    package imported."""
+    and the JAX package, and so do ``chip_smoke.py`` and the card test
+    modules with the parallel package imported."""
     from lipsync_tpu_torch.parallel import mesh as mesh_lib
 
     mesh_lib.run_group(_rank_modules, 2, "cpu", f"file://{tmp_path}/store",
@@ -76,8 +80,11 @@ def test_spawned_ranks_and_chip_smoke_load_no_jax(tmp_path):
     for rank in range(2):
         assert (tmp_path / f"rank{rank}.txt").read_text() == "", rank
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tests')\n"
+        f"for m in {[p.stem for p in CARD_TESTS]!r}:\n"
+        "    importlib.import_module(m)\n"
         "from lipsync_tpu_torch.parallel import collectives, mesh\n"
         "from lipsync_tpu_torch.training import train, finetune\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

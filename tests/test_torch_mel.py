@@ -2,7 +2,7 @@
 
 Tolerance < 1e-3 dB, the JAX package's own bound for its fused kernel.
 On the CPU the K1 wrapper runs its plain twin; the CUDA kernel is held
-against the same twin on the card by chip_smoke.py.
+against the same twin on the card by tests/test_torch_kernels_card.py.
 """
 
 import numpy as np

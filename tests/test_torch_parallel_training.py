@@ -29,7 +29,6 @@ weights after the step.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import sys
@@ -38,15 +37,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from lipsync_tpu_torch.models import LipSyncModel, ModelConfig
-from lipsync_tpu_torch.models import audio_encoder, visual_encoder
 from lipsync_tpu_torch.models.bridge import seeded_state_dict
 from lipsync_tpu_torch.ops.augment import AugmentConfig
 from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.training import steps
 from lipsync_tpu_torch.training.optimizers import PhaseOptimizer
+from torch_card import SGD1, activation_pattern, conv_biases_before_batchnorm
 
 torch.set_num_threads(1)
 
@@ -56,21 +54,6 @@ CFG = ModelConfig(video_frames=8, crop_size=48, mel_bins=80,
                   audio_frames=32, dropout=0.0)
 JOIN_TIMEOUT_S = 240.0
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
-
-
-class SGD1:
-    """``torch.optim.SGD(lr=1)`` with the port optimizer's interface: the
-    step's parameters minus its gradients."""
-
-    def __init__(self, model):
-        self.opt = torch.optim.SGD(model.parameters(), lr=1.0)
-        self.param_groups = self.opt.param_groups
-
-    def zero_grad(self):
-        self.opt.zero_grad()
-
-    def step(self):
-        self.opt.step()
 
 
 # name: (optimizer factory, dropout, device augmentation, batch maker)
@@ -111,55 +94,6 @@ CASES = {
         lambda m: PhaseOptimizer(m.named_parameters(), 3, 1e-4, 1e-5),
         0.1, True, _phase_batch),
 }
-
-
-@contextlib.contextmanager
-def activation_pattern(tape: list, replay: bool, seen: dict,
-                       shard: mesh_lib.ProcessShard | None = None):
-    """Record (``replay`` False) or replay, in call order, every ReLU mask
-    and max-pool choice. A replaying rank takes its block of rows of each
-    recorded choice of the model (axis 0 of a global-batch tensor); the
-    losses' ReLUs run on gathered global tensors and take the whole."""
-    relu, pool = F.relu, visual_encoder.max_pool_same
-    it = iter(tape)
-    seen.update(flips=0)
-
-    def rows(rec, x):
-        if shard is None or rec.shape[0] == x.shape[0]:
-            return rec
-        b = x.shape[0]
-        return rec[shard.rank * b:(shard.rank + 1) * b]
-
-    # A replayed output keeps the memory layout of the op's own output:
-    # dropout lays its noise out in memory order, so the layout decides
-    # which element draws which number.
-    def relu_(x, inplace=False):
-        if not replay:
-            tape.append(x > 0)
-            return relu(x)
-        mask = rows(next(it), x)
-        seen["flips"] += int(((x > 0) != mask).sum())
-        return torch.empty_like(x).copy_(x * mask)
-
-    def pool_(x, window, strides, padding):
-        fn = {2: F.max_pool2d, 3: F.max_pool3d}[len(window)]
-        out, idx = fn(x, tuple(window), tuple(strides),
-                      tuple(p[0] for p in padding), return_indices=True)
-        if not replay:
-            tape.append(idx)
-            return out
-        rec = rows(next(it), x)
-        seen["flips"] += int((rec != idx).sum())
-        return torch.empty_like(out).copy_(
-            x.flatten(2).gather(2, rec.flatten(2)).view(rec.shape))
-
-    F.relu = relu_
-    visual_encoder.max_pool_same = audio_encoder.max_pool_same = pool_
-    try:
-        yield
-    finally:
-        F.relu = relu
-        visual_encoder.max_pool_same = audio_encoder.max_pool_same = pool
 
 
 def run_case(name, shard=None, tape=None, replay=False, threads=1):
@@ -244,22 +178,7 @@ def world(request, tmp_path_factory):
     return (request.param,) + run_world(tmp, request.param, list(CASES))
 
 
-def _conv_biases_before_batchnorm():
-    """A conv bias in front of a training-mode BatchNorm has a zero
-    gradient in exact arithmetic: both sides hold rounding noise there."""
-    zero = set()
-    for name, mod in LipSyncModel(CFG).named_modules():
-        kids = list(mod.children()) if isinstance(mod, torch.nn.Sequential) \
-            else []
-        for i, (a, b) in enumerate(zip(kids, kids[1:])):
-            if (isinstance(a, torch.nn.modules.conv._ConvNd)
-                    and a.bias is not None
-                    and isinstance(b, torch.nn.modules.batchnorm._BatchNorm)):
-                zero.add(f"{name}.{i}.bias")
-    return zero
-
-
-ZERO = _conv_biases_before_batchnorm()
+ZERO = conv_biases_before_batchnorm(LipSyncModel(CFG))
 
 
 def _rel(a, b):

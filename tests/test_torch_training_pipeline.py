@@ -573,8 +573,9 @@ def test_orbax_directory_raises(tmp_path):
 
 
 def test_synthetic_corpus_reads_as_a_training_corpus(tmp_path):
-    """``utils/synthetic.py::write_corpus`` (the corpus that chip_smoke.py
-    trains on) is a full_sequence corpus that both packages read alike."""
+    """``utils/synthetic.py::write_corpus`` (the corpus that the card tests
+    of ``tests/test_torch_training_card.py`` train on) is a full_sequence
+    corpus that both packages read alike."""
     from lipsync_tpu_torch.utils import synthetic
 
     out = synthetic.write_corpus(tmp_path / "c", n_clips=4, n_frames=20,
