@@ -16,7 +16,9 @@ The runs, with every kernel's launch counter set to 0 just before each:
   full group of 256 windows, the bulk cells' batch (K1, K2, K4, K3);
 - ``train_step``: one fp32 train step at batch 2, which takes the module
   chain and launches no kernel;
-- ``avhubert``: AV-HuBERT LARGE's engine on one group of 256 windows (K5).
+- ``avhubert``: AV-HuBERT LARGE's engine on one group of 256 windows (K5);
+- ``bulk``: the served bf16 engine on one group of 256 windows, the bulk
+  cells' group (K2, K6 on layers 1-2 at ``(256, 32, 24, 24, 64)``).
 
 While they run, each kernel's wrapper, where the main path looks it up,
 is wrapped: the first call at each shape, dtype and parameter set is run
@@ -24,7 +26,8 @@ once more with the twin on the same inputs, and the kernel's result held
 to the kernel's bound (K1 within 1e-3 dB after the floor; K2 within
 2e-5 of max(1, |twin|) of the fp32 twin, and for a bf16 clip one bf16
 step of |twin| more; K3 and K4 bit for bit; K5 at most 1e-3 of pooled values apart, each within
-``av_stem.sum_order_bound``). Shapes that the main path does not reach are
+``av_stem.sum_order_bound``; K6 within 2e-5 of max(1, |twin|) of its
+fp32 twin). Shapes that the main path does not reach are
 held by the card tests (``tests/test_torch_*_card.py``).
 
 Printed, one JSON line each: every run's launches; ``main_path_shapes``,
@@ -67,6 +70,7 @@ def seams():
     from lipsync_tpu_torch.models import artifact as artifact_mod
     from lipsync_tpu_torch.models import layers as layers_mod
     from lipsync_tpu_torch.ops.kernels import av_stem as k5
+    from lipsync_tpu_torch.ops.kernels import conv3d_tf32x3 as k6
     from lipsync_tpu_torch.ops.kernels import hf_stem as k2
     from lipsync_tpu_torch.ops.kernels import int8_conv as k3
     from lipsync_tpu_torch.ops.kernels import int8_quant as k4
@@ -83,6 +87,7 @@ def seams():
         ("int8_quant", layers_mod, "absmax_quantize",
          k4.absmax_quantize_plain),
         ("av_stem", k5, "av_stem", k5.av_stem_plain),
+        ("conv3d_tf32x3", k6, "conv3d_tf32x3", k6.conv3d_tf32x3_plain),
     )
 
 
@@ -121,9 +126,10 @@ def gap(name: str, got, want, args) -> float:
     if name == "log_mel":
         return float((k1.finish_db(got) - k1.finish_db(want)).abs().max()
                      / 1e-3)
-    if name == "hf_stem":
-        # 3xTF32 keeps conv1 at fp32's accuracy; a bf16 clip's result is
-        # that rounded to bf16: one bf16 step (2^-8) of |twin| more
+    if name in ("hf_stem", "conv3d_tf32x3"):
+        # 3xTF32 keeps the convolution at fp32's accuracy; a bf16 clip's
+        # result is that rounded to bf16: one bf16 step (2^-8) of |twin|
+        # more
         got, want = got.float(), want.float()
         tol = 2e-5 * max(1.0, float(want.abs().max()))
         if args[0].dtype == torch.bfloat16:
@@ -242,6 +248,7 @@ def least_ms(name: str, args: tuple, kwargs: dict, out) -> tuple:
 
     from benchmark.core import peaks
     from lipsync_tpu_torch.ops.kernels import av_stem as k5
+    from lipsync_tpu_torch.ops.kernels import conv3d_tf32x3 as k6
     from lipsync_tpu_torch.ops.kernels import mel as k1
 
     x = args[0]
@@ -270,6 +277,15 @@ def least_ms(name: str, args: tuple, kwargs: dict, out) -> tuple:
     if name == "int8_quant":  # x read once, int8 written once
         return 1e3 * peaks.least_seconds(
             x.numel() * (x.element_size() + 1), 0.0, "fp32"), "bytes"
+    if name == "conv3d_tf32x3":  # the fp32 work at the TF32 rate; x, the
+        # residual and the output moved once
+        p, stride, padding = args[1], args[2], args[3]
+        res = args[4] if len(args) > 4 else kwargs.get("residual")
+        n_bytes = 4 * x.numel() + out.numel() * out.element_size() + (
+            0 if res is None else 4 * res.numel())
+        return 1e3 * peaks.least_seconds(
+            n_bytes, k6.flops(x.shape, p.weight.shape, stride, padding),
+            "tf32"), "tf32"
     b, _, t, h, w = x.shape  # K5, as benchmark/metrics prices a position
     positions = b * t * k5.out_size(h) * k5.out_size(w)
     return 1e3 * positions * peaks.least_seconds(
@@ -342,6 +358,19 @@ def run_int8(dev, cfg, calibrated) -> None:
           "non-finite int8 logits")
 
 
+def run_bulk(dev, cfg, calibrated) -> None:
+    import numpy as np
+
+    from lipsync_tpu_torch.inference.engine import ScoringEngine
+
+    engine = ScoringEngine(calibrated, cfg, max_batch=GROUP, device=dev)
+    visual, mel = windows(GROUP, (cfg.video_frames, cfg.crop_size,
+                                  cfg.crop_size, 3),
+                          (cfg.mel_bins, cfg.audio_frames), 17)
+    check(np.isfinite(engine.score_logits(visual, mel)).all(),
+          "non-finite bf16 logits")
+
+
 def run_train_step(dev, cfg) -> None:
     import numpy as np
 
@@ -407,11 +436,13 @@ def main() -> None:
             "requests": lambda: run_requests(dev, cfg, calibrated),
             "int8": lambda: run_int8(dev, cfg, calibrated),
             "train_step": lambda: run_train_step(dev, cfg),
-            "avhubert": lambda: run_avhubert(dev, AVHubertConfig())}
-    expect = {"predict": {"log_mel", "hf_stem"},
-              "requests": {"log_mel", "hf_stem"},
+            "avhubert": lambda: run_avhubert(dev, AVHubertConfig()),
+            "bulk": lambda: run_bulk(dev, cfg, calibrated)}
+    expect = {"predict": {"log_mel", "hf_stem", "conv3d_tf32x3"},
+              "requests": {"log_mel", "hf_stem", "conv3d_tf32x3"},
               "int8": {"log_mel", "hf_stem", "int8_conv", "int8_quant"},
-              "train_step": set(), "avhubert": {"av_stem"}}
+              "train_step": set(), "avhubert": {"av_stem"},
+              "bulk": {"hf_stem", "conv3d_tf32x3"}}
     by_run = {}
     with Recorder() as rec:
         for run, fn in runs.items():

@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lipsync_tpu_torch.ops.kernels import conv3d_tf32x3 as k6
 from lipsync_tpu_torch.ops.kernels import int8_conv as int8_conv_k3
 from lipsync_tpu_torch.ops.kernels.int8_conv import (
     int8_conv_dequant,
@@ -47,6 +48,7 @@ from lipsync_tpu_torch.ops.kernels.int8_quant import (
 )
 from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.parallel.collectives import all_gather_rows
+from lipsync_tpu_torch.utils import profiling
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 
@@ -417,9 +419,48 @@ class ConvBNAct(nn.Sequential):
         return x
 
 
+def tf32x3_takes(x: torch.Tensor, block: ConvBNAct) -> bool:
+    """Whether K6 (``ops/kernels/conv3d_tf32x3.py``) runs ``block`` on
+    ``x``: a CUDA fp32 5-d input outside autocast, a 3x3x3 convolution
+    padded by 1 or a 1x1x1 one padded by 0, no bias, C_in a multiple of 32
+    and C_out of 64, stride (1, 1, 1) or (1, 2, 2), the plain lowering,
+    the block in eval mode and no gradient recorded. Everything else (the
+    CPU, bf16, training, the int8 lowering, 2-d blocks) runs the module
+    chain."""
+    conv = block[0]
+    shape = (tuple(conv.kernel_size), tuple(conv.padding))
+    return (x.is_cuda and x.dtype == torch.float32 and x.dim() == 5
+            and not torch.is_grad_enabled()
+            and not torch.is_autocast_enabled(x.device.type)
+            and not block.training and not block[1].training
+            and block.lowering == "conv" and block.unequal_padding is None
+            and shape in (((3, 3, 3), (1, 1, 1)), ((1, 1, 1), (0, 0, 0)))
+            and conv.bias is None and conv.groups == 1
+            and tuple(conv.dilation) == (1, 1, 1)
+            and conv.in_channels % 32 == 0 and conv.out_channels % 64 == 0
+            and tuple(conv.stride) in ((1, 1, 1), (1, 2, 2)))
+
+
+def tf32x3_conv(x: torch.Tensor, block: ConvBNAct,
+                residual: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
+    """``block`` (conv, eval BatchNorm) on K6 over channels-last fp32 ``x``
+    ``(B, T, H, W, C)``, then ``+ residual`` and ReLU where asked: a
+    channels-last fp32 ``(B, To, Ho, Wo, C_out)`` tensor. Counts the launch
+    and its FLOPs (``visual.k6_calls``, ``visual.k6_flops``)."""
+    conv = block[0]
+    profiling.count("visual.k6_calls", 1)
+    profiling.count("visual.k6_flops", k6.flops(
+        x.shape, conv.weight.shape, conv.stride, conv.padding))
+    return k6.conv3d_tf32x3(x, k6.packed(block), conv.stride, conv.padding,
+                            residual, relu)
+
+
 class ResidualBlockND(nn.Module):
     """ConvBNReLU -> ConvBN (+ 1x1 ConvBN shortcut when the stride or width
-    changes) -> ReLU; 3-d for video, 2-d for audio."""
+    changes) -> ReLU; 3-d for video, 2-d for audio. Where
+    :func:`tf32x3_takes` holds for every convolution of the block, the
+    block runs on K6 channels-last (:meth:`tf32x3_forward`)."""
 
     def __init__(
         self,
@@ -444,8 +485,25 @@ class ResidualBlockND(nn.Module):
             self.downsample = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        convs = [self.conv1, self.conv2] + (
+            [] if self.downsample is None else [self.downsample])
+        if all(tf32x3_takes(x, c) for c in convs):
+            return self.tf32x3_forward(x)
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(self.conv2(self.conv1(x)) + identity)
+
+    def tf32x3_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The block on K6: conv1 with BatchNorm and ReLU, the shortcut with
+        its BatchNorm where there is one, conv2 with BatchNorm, the shortcut
+        added and ReLU. ``x`` is read channels-last (a copy unless it is
+        laid out so); returns a channels-first view of the channels-last
+        fp32 output."""
+        xl = x.permute(0, 2, 3, 4, 1).contiguous()
+        h = tf32x3_conv(xl, self.conv1, relu=True)
+        identity = xl if self.downsample is None else \
+            tf32x3_conv(xl, self.downsample)
+        return tf32x3_conv(h, self.conv2, identity, relu=True).permute(
+            0, 4, 1, 2, 3)
 
 
 def max_pool_same(

@@ -12,7 +12,10 @@ the feature map, which the artifact branch's convolutions consume; the
 pooled output is fp32. On BatchNorm-calibrated weights, bf16 in the stem
 alone moves P(REAL) by up to ~1e-2 against fp32, more than the 4e-3 the
 served path is held to (PERF.md). ``conv_lowering="int8"`` runs every
-convolution through K3 (``layers.int8_conv``).
+convolution through K3 (``layers.int8_conv``). In eval-mode fp32 inference
+on a CUDA card the residual blocks' convolutions run on K6, the 3xTF32
+kernel, with fp32's accuracy (``layers.tf32x3_takes``); the span
+``visual.low`` times the stem, its pool and layers 1-2.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from lipsync_tpu_torch.models.layers import (
     dropout,
     max_pool_same,
 )
+from lipsync_tpu_torch.utils import profiling
 
 
 class VisualEncoder(nn.Module):
@@ -62,10 +66,12 @@ class VisualEncoder(nn.Module):
             raise ValueError(
                 f"VisualEncoder expects (B, T, H, W, 3), got {tuple(x.shape)}"
             )
-        out = self.stem(x.float().permute(0, 4, 1, 2, 3))  # (B, C, T, H, W)
-        out = max_pool_same(out, (1, 3, 3), (1, 2, 2),
-                            ((0, 0), (1, 1), (1, 1)))
-        out = self.layer2(self.layer1(out)).to(dtype or x.dtype)
+        with profiling.span("visual.low", device=x.device):
+            # (B, C, T, H, W)
+            out = self.stem(x.float().permute(0, 4, 1, 2, 3))
+            out = max_pool_same(out, (1, 3, 3), (1, 2, 2),
+                                ((0, 0), (1, 1), (1, 1)))
+            out = self.layer2(self.layer1(out)).to(dtype or x.dtype)
         with compute_in(out):
             out = self.layer4(self.layer3(out))
             out = dropout(out, self.dropout, self.training, feature=True)

@@ -22,7 +22,8 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "lipsync_tpu_torch_kernels"
-KERNELS = ("mel", "hf_stem", "int8_conv", "int8_quant", "av_stem")
+KERNELS = ("mel", "hf_stem", "int8_conv", "int8_quant", "av_stem",
+           "conv3d_tf32x3")
 # Guards the wrappers' launch counts: the shards of an int8 mesh launch from
 # one thread each.
 COUNT_LOCK = threading.Lock()

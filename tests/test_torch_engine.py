@@ -305,8 +305,9 @@ def test_max_in_flight_streams_groups(engines, in_flight, track):
 def test_spans_and_upload_bytes_under_a_profiler(engines, track):
     """Under a CPU profiler one call over 2.5 groups records one
     ``engine.score`` and, per group, an ``engine.dispatch`` holding
-    ``engine.pad``, ``engine.upload`` and ``engine.forward``, and an
-    ``engine.readback``; ``engine.upload_bytes`` is the bytes of the padded
+    ``engine.pad``, ``engine.upload`` and ``engine.forward`` (which holds
+    the visual encoder's ``visual.low``), and an ``engine.readback``;
+    ``engine.upload_bytes`` is the bytes of the padded
     group arrays; the logits are bit-equal with tracing off."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -347,7 +348,11 @@ def test_spans_and_upload_bytes_under_a_profiler(engines, track):
     for d in dispatch:
         kids = sorted(r.name for r in recs if r.parent == d.id)
         assert kids == ["engine.forward", "engine.pad"] + uploads
-    assert len(recs) == 1 + 3 * (4 + len(uploads))
+        forward = [r for r in recs
+                   if r.parent == d.id and r.name == "engine.forward"][0]
+        assert [r.name for r in recs if r.parent == forward.id] == \
+            ["visual.low"]
+    assert len(recs) == 1 + 3 * (5 + len(uploads))
     buckets = (4, 4, 2)
     window_bytes = 80 * 32 * 4 + (8 if track else 8 * 32 * 32 * 3)
     # The track path uploads its crops padded to 8 * 2^k frames per group.

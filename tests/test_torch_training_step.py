@@ -484,8 +484,10 @@ def _two_steps(augment, profiled):
 @pytest.mark.parametrize("augment", [False, True], ids=["plain", "augment"])
 def test_train_step_spans_leave_the_step_bit_equal(augment):
     """Under a profiler two steps record two ``train.step`` trees of four
-    children each (augment, forward, backward, update), and the losses and
-    parameters are bit-equal with tracing off, where nothing is kept."""
+    children each (augment, forward, backward, update), the forward holding
+    the visual encoder's ``visual.low`` once for each of its two visual
+    encodes, and the losses and parameters are bit-equal with tracing off,
+    where nothing is kept."""
     losses, params, recs = _two_steps(augment, profiled=True)
     want_losses, want_params, none = _two_steps(augment, profiled=False)
     assert none == []
@@ -501,4 +503,6 @@ def test_train_step_spans_leave_the_step_bit_equal(augment):
                                           "train.backward", "train.update"]
         assert all(r.root == root.id for r in kids)
         assert root.t0_ns <= kids[0].t0_ns and kids[-1].t1_ns <= root.t1_ns
-    assert len(recs) == 10
+        lows = [r for r in recs if r.parent == kids[1].id]
+        assert [r.name for r in lows] == ["visual.low"] * 2
+    assert len(recs) == 14

@@ -31,6 +31,7 @@ from lipsync_tpu_torch.models import (
 from lipsync_tpu_torch.models import artifact as artifact_mod
 from lipsync_tpu_torch.models import layers as layers_mod
 from lipsync_tpu_torch.ops import mel as mel_ops
+from lipsync_tpu_torch.ops.kernels import conv3d_tf32x3 as k6
 from lipsync_tpu_torch.ops.kernels import hf_stem as k2
 from lipsync_tpu_torch.ops.kernels import int8_conv as k3
 from lipsync_tpu_torch.ops.kernels import int8_quant as k4
@@ -42,7 +43,8 @@ from lipsync_tpu_torch.utils import synthetic
 
 SEED = 0
 STRIDE = 8  # the requests' window stride
-KERNELS = {"log_mel": k1, "hf_stem": k2, "int8_conv": k3, "int8_quant": k4}
+KERNELS = {"log_mel": k1, "hf_stem": k2, "int8_conv": k3, "int8_quant": k4,
+           "conv3d_tf32x3": k6}
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +63,7 @@ def tf32_off(monkeypatch):
 
 
 def launches() -> dict:
-    """Every kernel's launch count, K1 to K4."""
+    """Every kernel's launch count: K1 to K4 and K6."""
     return {name: k.launches for name, k in KERNELS.items()}
 
 
@@ -93,24 +95,69 @@ K2_SHAPES = [(2, 4, 15, 10, 3), (4, 16, 96, 96, 3), (2, 16, 96, 96, 3),
              (2, 4, 32, 32, 3), (4, 4, 32, 32, 3)]
 
 
+# K6 by the visual encoder's clip (B, T, H, W): every clip K2 gets (the
+# same crops), and the track path's whole padded tracks (32 x 2^k frames)
+# and, on a mesh of two, each shard's half plus the encoder's temporal
+# halo of 9 frames each side.
+K6_CLIPS = sorted({s[:4] for s in K2_SHAPES}
+                  | {(1, t, 96, 96) for t in (32, 64, 128, 256, 512, 1024)}
+                  | {(1, t // 2 + 9, 96, 96) for t in (32, 64, 128, 256, 512,
+                                                        1024)})
+
+
+def k6_keys(clip) -> list:
+    """The inputs K6 gets (:func:`k6_key`) from the visual encoder of
+    ``ModelConfig()`` on ``clip`` in fp32: the stem (k7, stride 2, pad 3)
+    and its pool (k3, stride 2, pad 1) halve H and W twice, then each
+    residual block's conv1, shortcut (stride (1, 2, 2) past layer1) and
+    conv2; layers 3-4 run on K6 where they run in fp32."""
+    b, t, h, w = clip
+    for _ in range(2):
+        h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    keys, c = [], 64
+    for cout, stride in ((64, 1), (128, 2), (256, 2), (256, 2)):
+        keys.append(((b, t, h, w, c), (cout, c, 3, 3, 3), (1, stride,
+                                                              stride)))
+        if stride != 1 or c != cout:
+            keys.append(((b, t, h, w, c), (cout, c, 1, 1, 1),
+                         (1, stride, stride)))
+        h, w = (h - 1) // stride + 1, (w - 1) // stride + 1
+        keys.append(((b, t, h, w, cout), (cout, cout, 3, 3, 3), (1, 1, 1)))
+        c = cout
+    return keys
+
+
+def k6_key(x, p, stride) -> tuple:
+    """A K6 input: ``x``'s shape, the weight's shape and the stride."""
+    return (tuple(x.shape), tuple(p.weight.shape), tuple(stride))
+
+
+K6_SHAPES = {k for clip in K6_CLIPS for k in k6_keys(clip)}
+
+
 def unchecked(seen: dict) -> dict:
-    """The inputs in ``seen`` (:func:`main_path_inputs`) that
-    ``tests/test_torch_kernels_card.py`` does not hold against the twin."""
+    """The inputs in ``seen`` (:func:`main_path_inputs`) that the kernel
+    tests (``tests/test_torch_kernels_card.py``,
+    ``tests/test_torch_conv3d_tf32x3_card.py``) do not hold against the
+    twin."""
     k1_held = {((1, n), "float32", tuple(sorted(K1_DEFAULTS.items())))
                for n in K1_SAMPLES}
     k2_held = {(s, dt) for s in K2_SHAPES for dt in ("float32", "bfloat16")}
     return {"log_mel": sorted(seen["log_mel"] - k1_held, key=str),
-            "hf_stem": sorted(seen["hf_stem"] - k2_held, key=str)}
+            "hf_stem": sorted(seen["hf_stem"] - k2_held, key=str),
+            "conv3d_tf32x3": sorted(seen["conv3d_tf32x3"] - K6_SHAPES,
+                                    key=str)}
 
 
 @pytest.fixture(scope="module")
 def main_path_inputs(card):
     """While a module's tests run, the shape and dtype of every input that
-    the main path gives K1 (with its parameters) and K2; at the module's
-    end, each must be one at which the kernel tests hold the kernel
-    against its twin."""
-    seen = {"log_mel": set(), "hf_stem": set()}
+    the main path gives K1 (with its parameters), K2 and K6; at the
+    module's end, each must be one at which the kernel tests hold the
+    kernel against its twin."""
+    seen = {"log_mel": set(), "hf_stem": set(), "conv3d_tf32x3": set()}
     log_mel_db, hf_stem = k1.log_mel_db, artifact_mod.hf_stem
+    conv3d_tf32x3 = k6.conv3d_tf32x3
     k1_args = inspect.signature(log_mel_db)
 
     def k1_call(*args, **kwargs):
@@ -126,11 +173,16 @@ def main_path_inputs(card):
         seen["hf_stem"].add((tuple(video.shape), str(video.dtype)[6:]))
         return hf_stem(video, *args, **kwargs)
 
+    def k6_call(x, p, stride, *args, **kwargs):
+        seen["conv3d_tf32x3"].add(k6_key(x, p, stride))
+        return conv3d_tf32x3(x, p, stride, *args, **kwargs)
+
     with pytest.MonkeyPatch.context() as m:
         m.setattr(k1, "log_mel_db", k1_call)
         m.setattr(artifact_mod, "hf_stem", k2_call)
+        m.setattr(k6, "conv3d_tf32x3", k6_call)
         yield seen
-    assert seen["log_mel"] and seen["hf_stem"]
+    assert seen["log_mel"] and seen["hf_stem"] and seen["conv3d_tf32x3"]
     assert not any(unchecked(seen).values()), unchecked(seen)
 
 
@@ -210,6 +262,7 @@ def plain_kernels(m) -> None:
     """The whole path with every kernel's twin in its place."""
     m.setattr(audio_mod, "log_mel_spectrogram_fused", plain_log_mel)
     m.setattr(artifact_mod, "hf_stem", k2.hf_stem_plain)
+    m.setattr(k6, "conv3d_tf32x3", k6.conv3d_tf32x3_plain)
     plain_int8(m)
 
 
