@@ -17,6 +17,8 @@ The runs, with every kernel's launch counter set to 0 just before each:
 - ``train_step``: one fp32 train step at batch 2, which takes the module
   chain and launches no kernel;
 - ``avhubert``: AV-HuBERT LARGE's engine on one group of 256 windows (K5);
+- ``auto_avsr``: Auto-AVSR's engine at its published widths on one group
+  of 256 windows of 96 frames and their PCM (K5's Swish instantiation);
 - ``bulk``: the served bf16 engine on one group of 256 windows, the bulk
   cells' group (K2, K6 on layers 1-2 at ``(256, 32, 24, 24, 64)``).
 
@@ -415,6 +417,23 @@ def run_avhubert(dev, cfg) -> None:
           "non-finite AV-HuBERT logits")
 
 
+def run_auto_avsr(dev, cfg) -> None:
+    import numpy as np
+
+    from benchmark.reference import auto_avsr as ref
+    from lipsync_tpu_torch.inference.engine import ScoringEngine
+
+    model = {k: getattr(cfg, k) for k in cfg.__dataclass_fields__}
+    engine = ScoringEngine(ref.make_weights(model, 11, dev), cfg,
+                           max_batch=GROUP, device=dev)
+    visual, _ = windows(GROUP, (cfg.video_frames, cfg.crop_size,
+                                cfg.crop_size), (1,), 13)
+    pcm = np.random.RandomState(14).randn(
+        GROUP, 1, cfg.video_frames * 640).astype(np.float32)
+    check(np.isfinite(engine.score_logits(visual, pcm)).all(),
+          "non-finite Auto-AVSR logits")
+
+
 def main() -> None:
     import torch
 
@@ -425,6 +444,7 @@ def main() -> None:
 
     import torch_card
     from lipsync_tpu_torch.models import ModelConfig
+    from lipsync_tpu_torch.models.auto_avsr import AutoAVSRConfig
     from lipsync_tpu_torch.models.avhubert import AVHubertConfig
     from lipsync_tpu_torch.utils.device import disable_tf32
 
@@ -437,11 +457,13 @@ def main() -> None:
             "int8": lambda: run_int8(dev, cfg, calibrated),
             "train_step": lambda: run_train_step(dev, cfg),
             "avhubert": lambda: run_avhubert(dev, AVHubertConfig()),
+            "auto_avsr": lambda: run_auto_avsr(dev, AutoAVSRConfig()),
             "bulk": lambda: run_bulk(dev, cfg, calibrated)}
     expect = {"predict": {"log_mel", "hf_stem", "conv3d_tf32x3"},
               "requests": {"log_mel", "hf_stem", "conv3d_tf32x3"},
               "int8": {"log_mel", "hf_stem", "int8_conv", "int8_quant"},
               "train_step": set(), "avhubert": {"av_stem"},
+              "auto_avsr": {"av_stem"},
               "bulk": {"hf_stem", "conv3d_tf32x3"}}
     by_run = {}
     with Recorder() as rec:

@@ -1,6 +1,7 @@
-// K5: AV-HuBERT's 3D stem in one launch for sm_90a: Conv3d 1 -> 64, k(5,
-// 7, 7), s(1, 2, 2), p(2, 3, 3), no bias; eval BatchNorm; PReLU; max-pool
-// (1, 3, 3) / (1, 2, 2) / (0, 1, 1). bf16 in, bf16 out.
+// K5: the 3D stem of AV-HuBERT and of Auto-AVSR in one launch for sm_90a:
+// Conv3d 1 -> 64, k(5, 7, 7), s(1, 2, 2), p(2, 3, 3), no bias; eval
+// BatchNorm; PReLU (AV-HuBERT) or Swish (Auto-AVSR), one instantiation
+// each; max-pool (1, 3, 3) / (1, 2, 2) / (0, 1, 1). bf16 in, bf16 out.
 //
 // Replaces: no TPU kernel. AV-HuBERT exists only in the port
 // (models/avhubert.py::ResEncoder.frontend3D). cuDNN has no tensor-core
@@ -47,7 +48,12 @@
 //     BatchNorm in fp32 by the formula of PyTorch's kernel for a
 //     contiguous input, gamma * (x - mean) * invstd + beta with invstd =
 //     rsqrt(var + eps), rounded to bf16; PReLU with the bf16 slope,
-//     x > 0 ? x : bf16(slope * x). The results go to a shared tile (-inf
+//     x > 0 ? x : bf16(slope * x), or Swish, bf16(x / (1 + exp(-x))) in
+//     fp32 as PyTorch's silu computes it (in a pass of its own over the
+//     shared tile, where its exp and division hold none of the epilogue's
+//     accumulators). Each activation is applied at every conv
+//     position before the 3 x 3 max: Swish is not monotonic, so it may
+//     not follow the pool. The results go to a shared tile (-inf
 //     at positions outside the frame), then all 256 threads take the 3 x
 //     3 max over bf16 pairs (NaN wins, as in PyTorch's pool) and write the
 //     pooled (B, T, 64, Hp, Wp) output: the (B * T, 64, Hp, Wp) frames that
@@ -207,23 +213,43 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Two channels' conv sums (c, c + 1) through BatchNorm and PReLU, as the
-// module chain rounds them: the sums to bf16, BatchNorm in fp32 (p = {gamma,
-// mean, invstd, beta} of each channel) to bf16, then x > 0 ? x : slope * x
-// in bf16 (the exact product rounded once). Returns the pair as one word,
-// channel c in the low half.
-__device__ __forceinline__ uint32_t bn_prelu(float acc0, float acc1,
-                                             const float4& p0,
-                                             const float4& p1,
-                                             __nv_bfloat162 slope) {
+// Swish of a bf16 value in fp32, by the formula of PyTorch's silu kernel
+// (x / (1 + exp(-x)), full-precision expf and division).
+__device__ __forceinline__ float swish(float v) {
+  return __fdiv_rn(v, __fadd_rn(1.0f, expf(-v)));
+}
+
+// Swish of a pair of bf16 values (one word, as the conv tile holds them),
+// each in fp32 and rounded to bf16.
+__device__ __forceinline__ uint32_t swish2(uint32_t z) {
+  return bits(__floats2bfloat162_rn(swish(__uint_as_float(z << 16)),
+                                    swish(__uint_as_float(z & 0xffff0000u))));
+}
+
+// Two channels' conv sums (c, c + 1) through BatchNorm and, with PReLU, the
+// activation, as the module chain rounds them: the sums to bf16, BatchNorm
+// in fp32 (p = {gamma, mean, invstd, beta} of each channel) to bf16, then
+// x > 0 ? x : slope * x in bf16 (the exact product rounded once). With
+// kSwish the BatchNorm's pair alone: Swish follows over the shared tile
+// (swish2), where its exp and division hold none of the accumulators'
+// registers. Returns the pair as one word, channel c in the low half.
+template <bool kSwish>
+__device__ __forceinline__ uint32_t bn_act(float acc0, float acc1,
+                                           const float4& p0,
+                                           const float4& p1,
+                                           __nv_bfloat162 slope) {
   const uint32_t y = bits(__floats2bfloat162_rn(acc0, acc1));
   const float y0 = __uint_as_float(y << 16);
   const float y1 = __uint_as_float(y & 0xffff0000u);
   const __nv_bfloat162 z = __floats2bfloat162_rn(
       __fmaf_rn(__fmul_rn(p0.x, __fsub_rn(y0, p0.y)), p0.z, p0.w),
       __fmaf_rn(__fmul_rn(p1.x, __fsub_rn(y1, p1.y)), p1.z, p1.w));
-  const uint32_t pos = __hgt2_mask(z, __float2bfloat162_rn(0.0f));
-  return (bits(z) & pos) | (bits(__hmul2(slope, z)) & ~pos);
+  if constexpr (kSwish) {
+    return bits(z);
+  } else {
+    const uint32_t pos = __hgt2_mask(z, __float2bfloat162_rn(0.0f));
+    return (bits(z) & pos) | (bits(__hmul2(slope, z)) & ~pos);
+  }
 }
 
 // The tile's input: frame f (t + f - 2), halo row r (input row 4 py0 - 5
@@ -326,13 +352,14 @@ __device__ __forceinline__ void conv_tiles(float (&acc)[2][32],
   }
 }
 
-template <bool kAligned>
+template <bool kAligned, bool kSwish>
 __global__ void __launch_bounds__(kThreads, 2)
 av_stem_kernel(const __nv_bfloat16* __restrict__ x,   // (B, T, H, W)
                const __nv_bfloat16* __restrict__ wpk, // B's shared image
                const float* __restrict__ gamma, const float* __restrict__ beta,
                const float* __restrict__ mean, const float* __restrict__ var,
-               const __nv_bfloat16* __restrict__ slope, float eps,
+               const __nv_bfloat16* __restrict__ slope,  // PReLU only
+               float eps,
                __nv_bfloat16* __restrict__ out,        // (B, T, 64, Hp, Wp)
                const Geom g) {
   extern __shared__ uint8_t dyn[];
@@ -357,7 +384,7 @@ av_stem_kernel(const __nv_bfloat16* __restrict__ x,   // (B, T, H, W)
     prm[tid] = make_float4(gamma[tid], mean[tid], rsqrtf(var[tid] + eps),
                            beta[tid]);
   }
-  if (tid < kC / 2) {
+  if (!kSwish && tid < kC / 2) {
     slp[tid] = reinterpret_cast<const __nv_bfloat162*>(slope)[tid];
   }
 
@@ -432,20 +459,38 @@ av_stem_kernel(const __nv_bfloat16* __restrict__ x,   // (B, T, H, W)
     for (int j = 0; j < kC / 8; ++j) {
       const int c = 8 * j + 2 * tig;
       const float4 p0 = prm[c], p1 = prm[c + 1];
-      const __nv_bfloat162 sl = slp[c / 2];
+      const __nv_bfloat162 sl =
+          kSwish ? __float2bfloat162_rn(0.0f) : slp[c / 2];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           if (row[u][hh] < 0) continue;
-          const uint32_t v = bn_prelu(acc[u][4 * j + 2 * hh],
-                                      acc[u][4 * j + 2 * hh + 1], p0, p1, sl);
+          const uint32_t v = bn_act<kSwish>(
+              acc[u][4 * j + 2 * hh], acc[u][4 * j + 2 * hh + 1], p0, p1, sl);
           conv[(4 * j + tig) * kOS + row[u][hh]] =
               inside[u][hh] ? v : kNegInf2;
         }
       }
     }
     __syncthreads();
+    if constexpr (kSwish) {
+      // Swish over the conv positions the pool reads (a word of -inf,
+      // outside the frame, stays -inf for the pool), before the max: Swish
+      // is not monotonic, so it may not follow the pool. Thread tid takes
+      // position tid of each channel pair in turn, one word at a time:
+      // strided over the whole tile or unrolled, the pass spilled at 128
+      // registers a thread.
+      if (tid < need) {
+        uint32_t* w = conv + tid;
+#pragma unroll 1
+        for (int cp = 0; cp < kC / 2; ++cp, w += kOS) {
+          const uint32_t z = *w;
+          if (z != kNegInf2) *w = swish2(z);
+        }
+      }
+      __syncthreads();
+    }
 
     // The pool: thread tid % 64 takes pooled position (a, b) of the tile,
     // and channel pairs tid / 64 + 4 k: the max of its nine conv positions
@@ -482,21 +527,39 @@ av_stem_kernel(const __nv_bfloat16* __restrict__ x,   // (B, T, H, W)
   cp_async_wait_all();
 }
 
-template <bool kAligned>
-cudaError_t configure() {
-  return cudaFuncSetAttribute(av_stem_kernel<kAligned>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmemBytes);
-}
-
-int blocks_per_sm_of(bool aligned, int* per_sm) {
-  cudaError_t err = aligned ? configure<true>() : configure<false>();
+template <bool kAligned, bool kSwish>
+int blocks_per_sm_of(int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      av_stem_kernel<kAligned, kSwish>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm,
-      aligned ? av_stem_kernel<true> : av_stem_kernel<false>,
-      kThreads, kSmemBytes);
+      per_sm, av_stem_kernel<kAligned, kSwish>, kThreads, kSmemBytes);
   return static_cast<int>(err);
+}
+
+int blocks_per_sm_of(bool aligned, bool swish, int* per_sm) {
+  if (swish) {
+    return aligned ? blocks_per_sm_of<true, true>(per_sm)
+                   : blocks_per_sm_of<false, true>(per_sm);
+  }
+  return aligned ? blocks_per_sm_of<true, false>(per_sm)
+                 : blocks_per_sm_of<false, false>(per_sm);
+}
+
+template <bool kSwish>
+void launch(bool aligned, dim3 grid, cudaStream_t s,
+            const __nv_bfloat16* x, const __nv_bfloat16* wpk,
+            const float* gamma, const float* beta, const float* mean,
+            const float* var, const __nv_bfloat16* slope, float eps,
+            __nv_bfloat16* out, const Geom& g) {
+  if (aligned) {
+    av_stem_kernel<true, kSwish><<<grid, kThreads, kSmemBytes, s>>>(
+        x, wpk, gamma, beta, mean, var, slope, eps, out, g);
+  } else {
+    av_stem_kernel<false, kSwish><<<grid, kThreads, kSmemBytes, s>>>(
+        x, wpk, gamma, beta, mean, var, slope, eps, out, g);
+  }
 }
 
 }  // namespace
@@ -505,18 +568,20 @@ int blocks_per_sm_of(bool aligned, int* per_sm) {
 // the weights as ops/kernels/av_stem.py::pack_weights lays them out
 // (kKBlocks * 64 * 64 bf16, 16-byte aligned); gamma, beta, mean, var: the
 // BatchNorm's 64 fp32 weight, bias, running mean and running variance;
-// slope: the PReLU's 64 bf16 slopes (4-byte aligned); out: (B, T, 64, Hp, Wp) bf16,
-// contiguous, Hp = (Ho - 1) / 2 + 1 with Ho = (H - 1) / 2 + 1 (and so for
-// W). Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue
-// for a geometry it does not take.
+// slope: the PReLU's 64 bf16 slopes (4-byte aligned), unread (and may be
+// null) when swish != 0, which takes Swish in PReLU's place; out: (B, T,
+// 64, Hp, Wp) bf16, contiguous, Hp = (Ho - 1) / 2 + 1 with Ho = (H - 1) /
+// 2 + 1 (and so for W). Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a geometry it does not take.
 extern "C" int lipsync_av_stem(const void* x, const void* wpk,
                                const void* gamma, const void* beta,
                                const void* mean, const void* var,
                                const void* slope, float eps, void* out, int b,
-                               int t, int h, int w, void* stream) {
+                               int t, int h, int w, int swish, void* stream) {
   if (b < 1 || t < 1 || h < 1 || w < 1 ||
       reinterpret_cast<uintptr_t>(wpk) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(slope) % 4 != 0) {
+      (swish == 0 && (slope == nullptr ||
+                      reinterpret_cast<uintptr_t>(slope) % 4 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Geom g{};
@@ -541,7 +606,7 @@ extern "C" int lipsync_av_stem(const void* x, const void* wpk,
                                     dev)) != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const int occ = blocks_per_sm_of(aligned, &per_sm);
+  const int occ = blocks_per_sm_of(aligned, swish != 0, &per_sm);
   if (occ != 0) return occ;
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // Persistent: as many blocks as fit on the card, each walking tiles.
@@ -556,20 +621,19 @@ extern "C" int lipsync_av_stem(const void* x, const void* wpk,
   const auto* vp = static_cast<const float*>(var);
   const auto* sp = static_cast<const __nv_bfloat16*>(slope);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (aligned) {
-    av_stem_kernel<true><<<grid, kThreads, kSmemBytes, s>>>(
-        xp, wp, gp, bp, mp, vp, sp, eps, op, g);
+  if (swish != 0) {
+    launch<true>(aligned, grid, s, xp, wp, gp, bp, mp, vp, sp, eps, op, g);
   } else {
-    av_stem_kernel<false><<<grid, kThreads, kSmemBytes, s>>>(
-        xp, wp, gp, bp, mp, vp, sp, eps, op, g);
+    launch<false>(aligned, grid, s, xp, wp, gp, bp, mp, vp, sp, eps, op, g);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the kernel (the 4-byte cp.async variant when aligned != 0) one
-// SM holds at once, or minus the CUDA error.
-extern "C" int lipsync_av_stem_blocks_per_sm(int aligned) {
+// Blocks of the kernel (the 4-byte cp.async variant when aligned != 0; the
+// Swish instantiation when swish != 0) one SM holds at once, or minus the
+// CUDA error.
+extern "C" int lipsync_av_stem_blocks_per_sm(int aligned, int swish) {
   int per_sm = 0;
-  const int err = blocks_per_sm_of(aligned != 0, &per_sm);
+  const int err = blocks_per_sm_of(aligned != 0, swish != 0, &per_sm);
   return err != 0 ? -err : per_sm;
 }

@@ -55,12 +55,16 @@ its fp32 stages run in fp32 on CUDA.
 
 The model follows the type of ``config``: ``LipSyncModel`` for a
 ``ModelConfig``, AV-HuBERT LARGE with its detection head
-(``models/avhubert.py``) for an ``AVHubertConfig``. The model says how it
-takes the host's crops (its ``host_pixels``, applied after the uint8
-rounding): ``LipSyncModel`` as they come, AV-HuBERT grey, RGB ones turned
-grey with cv2's luma weights. ``quantized_int8`` and ``fold_hf_stem``
-lower ``LipSyncModel``'s convolutions and raise ``ValueError`` with an
-``AVHubertConfig``.
+(``models/avhubert.py``) for an ``AVHubertConfig``, Auto-AVSR's
+audio-visual conformer with its detection head (``models/auto_avsr.py``)
+for an ``AutoAVSRConfig``. The model says how it takes the host's crops
+(its ``host_pixels``, applied after the uint8 rounding): ``LipSyncModel``
+as they come, AV-HuBERT and Auto-AVSR grey, RGB ones turned grey with
+cv2's luma weights; and the host's audio windows (its ``host_audio``):
+log-mel ``(N, F, T_a, 1)`` for ``LipSyncModel`` and AV-HuBERT, PCM ``(N,
+1, 640 T)`` for Auto-AVSR, uploaded through the same staging as the mel.
+``quantized_int8`` and ``fold_hf_stem`` lower ``LipSyncModel``'s
+convolutions and raise ``ValueError`` with any other configuration.
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ import torch
 
 from lipsync_tpu_torch.inference.calibration import Calibrator
 from lipsync_tpu_torch.inference.staging import CudaLink, Slot, StagingRing
+from lipsync_tpu_torch.models.auto_avsr import AutoAVSR, AutoAVSRConfig
 from lipsync_tpu_torch.models.avhubert import AVHubert, AVHubertConfig
 from lipsync_tpu_torch.models.bridge import (
     unwrap_state_dict,
@@ -94,6 +99,10 @@ from lipsync_tpu_torch.utils.device import (
 from lipsync_tpu_torch.utils.weights import default_checkpoint
 
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# The model each configuration type builds.
+MODELS = {ModelConfig: LipSyncModel, AVHubertConfig: AVHubert,
+          AutoAVSRConfig: AutoAVSR}
+AnyConfig = Union[ModelConfig, AVHubertConfig, AutoAVSRConfig]
 _STAGING_SLOTS = 2
 # The attribute of a group's device logits that holds their pinned host copy
 # and its event (CUDA only).
@@ -137,7 +146,7 @@ class ScoringEngine:
     def __init__(
         self,
         variables: Mapping[str, Any],
-        config: Union[ModelConfig, AVHubertConfig] = ModelConfig(),
+        config: AnyConfig = ModelConfig(),
         calibrator: Optional[Calibrator] = None,
         use_bfloat16: Optional[bool] = None,
         mesh: Optional[Sequence[DeviceLike]] = None,
@@ -160,11 +169,13 @@ class ScoringEngine:
         if use_bfloat16 is None:
             use_bfloat16 = self.device.type == "cuda"
         dtype = torch.bfloat16 if use_bfloat16 else torch.float32
-        avhubert = isinstance(config, AVHubertConfig)
-        if avhubert and (quantized_int8 or fold_hf_stem):
+        if type(config) not in MODELS:
+            raise TypeError(f"no model for a {type(config).__name__}")
+        if not isinstance(config, ModelConfig) and (quantized_int8
+                                                    or fold_hf_stem):
             raise ValueError(
                 "quantized_int8 and fold_hf_stem lower LipSyncModel's "
-                "convolutions; an AVHubertConfig takes neither")
+                f"convolutions; an {type(config).__name__} takes neither")
         if fold_hf_stem:
             config = dataclasses.replace(config, hf_stem_fold=True)
         if quantized_int8:
@@ -172,8 +183,7 @@ class ScoringEngine:
         self.shared_visual_encoding = bool(shared_visual_encoding)
         self.quantized_int8 = bool(quantized_int8)
         self.config = config
-        self.model = (AVHubert if avhubert else LipSyncModel)(config,
-                                                              dtype=dtype)
+        self.model = MODELS[type(config)](config, dtype=dtype)
         self.model.load_state_dict(_as_state_dict(variables), strict=True)
         self.model.to(self.device).eval()
         self._replicas = {self.device: self.model}
@@ -302,8 +312,7 @@ class ScoringEngine:
         with profiling.span("engine.dispatch"):
             n = visual.shape[0]
             with profiling.span("engine.pad"):
-                if audio.ndim == 3:
-                    audio = audio[..., None]  # (N, F, T_a, 1)
+                audio = self.model.host_audio(audio)
                 bucket = self._bucket(n)
                 visual = _pad_rows(visual, bucket)
                 audio = _pad_rows(audio, bucket)
@@ -358,9 +367,10 @@ class ScoringEngine:
 
     def score_logits(self, visual: np.ndarray,
                      audio: np.ndarray) -> np.ndarray:
-        """``(N, T, H, W, 3)`` visual + ``(N, F, T_a[, 1])`` mel -> ``(N,)``
-        fp32 logits, in groups of ``max_batch``, ``max_in_flight`` of them
-        dispatched at a time."""
+        """``(N, T, H, W, 3)`` visual + ``(N, F, T_a[, 1])`` mel (or the
+        audio the model's ``host_audio`` takes) -> ``(N,)`` fp32 logits, in
+        groups of ``max_batch``, ``max_in_flight`` of them dispatched at a
+        time."""
         n = visual.shape[0]
         if n == 0:
             return np.zeros((0,), np.float32)
@@ -388,7 +398,8 @@ class ScoringEngine:
         crops: ``(N, crop, crop, 3)`` float32 in [0, 1] or uint8, the whole
             track, uploaded once per group.
         starts: window start indices into the track.
-        audio_windows: ``(W, F, T_a[, 1])`` aligned mel windows.
+        audio_windows: ``(W, F, T_a[, 1])`` aligned mel windows (or the
+            audio windows the model's ``host_audio`` takes).
         """
         w = len(starts)
         if w == 0:
@@ -416,8 +427,7 @@ class ScoringEngine:
             w = len(starts)
             chunk = self.config.video_frames
             with profiling.span("engine.pad"):
-                if audio_windows.ndim == 3:
-                    audio_windows = audio_windows[..., None]
+                audio_windows = self.model.host_audio(audio_windows)
                 if crops.dtype != np.uint8:
                     crops = _to_uint8(crops)
                 crops = self.model.host_pixels(crops)
@@ -536,13 +546,13 @@ class ScoringEngine:
         cfg = self.config
         v = np.zeros((1, cfg.video_frames, cfg.crop_size, cfg.crop_size, 3),
                      np.float32)
-        a = np.zeros((1, cfg.mel_bins, cfg.audio_frames), np.float32)
-        self.score_logits(v, a)
+        audio = self.model.audio_shape()
+        self.score_logits(v, np.zeros((1,) + audio, np.float32))
         crops = np.zeros(
             (cfg.video_frames + 1, cfg.crop_size, cfg.crop_size, 3), np.uint8
         )
-        aw = np.zeros((2, cfg.mel_bins, cfg.audio_frames), np.float32)
-        self.score_track_logits(crops, [0, 1], aw)
+        self.score_track_logits(crops, [0, 1],
+                                np.zeros((2,) + audio, np.float32))
 
 
 def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
@@ -558,7 +568,7 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 
 def load_engine(
     model_path: Optional[Path] = None,
-    config: Union[ModelConfig, AVHubertConfig] = ModelConfig(),
+    config: AnyConfig = ModelConfig(),
     calibrator: Optional[Calibrator] = None,
     use_bfloat16: Optional[bool] = None,
     mesh: Optional[object] = None,

@@ -10,6 +10,15 @@ policy`. Config knobs keep the reference's names and defaults.
 Host work (decode, detection, tracking, policy) is numpy and Python; the
 crops, the log-mel (K1) and the forward (K2 inside) run on ``device``,
 which is the card unless the caller passes ``device="cpu"``.
+
+The detector's audio is a property of its configuration: the log-mel for
+``LipSyncModel`` and AV-HuBERT; for Auto-AVSR (``AutoAVSRConfig``), which
+takes the waveform, the PCM framed in the log-mel's columns
+(``models/auto_avsr.py::frame_pcm``: column c holds the 160 samples from
+``160 c``, the mel's hop), so that every window is cut, aligned and padded
+exactly as its log-mel window is, and the model sees PCM and no mel. The
+policy (speaking scores, the mouth-motion energy check) reads the log-mel
+for every detector.
 """
 
 from __future__ import annotations
@@ -27,12 +36,12 @@ from lipsync_tpu_torch.inference.calibration import Calibrator
 from lipsync_tpu_torch.inference.engine import ScoringEngine, load_engine
 from lipsync_tpu_torch.inference.pipelined import score_long_video_pipelined
 from lipsync_tpu_torch.models import ModelConfig
+from lipsync_tpu_torch.models.auto_avsr import AutoAVSRConfig, frame_pcm
 from lipsync_tpu_torch.models.avhubert import AVHubertConfig
 from lipsync_tpu_torch.parallel import mesh as mesh_lib
 from lipsync_tpu_torch.preprocessing import ingest
 from lipsync_tpu_torch.preprocessing.audio import (
     detect_voice_activity,
-    preprocess_audio,
     preprocess_audio_pcm,
 )
 from lipsync_tpu_torch.preprocessing.video import (
@@ -48,7 +57,9 @@ logger = get_logger(__name__)
 
 
 # The detectors, each with the type of its configuration.
-MODEL_CONFIGS = {"lip_sync": ModelConfig, "avhubert_large": AVHubertConfig}
+MODEL_CONFIGS = {"lip_sync": ModelConfig, "avhubert_large": AVHubertConfig,
+                 "auto_avsr": AutoAVSRConfig}
+SAMPLE_RATE = 16000
 
 
 @dataclasses.dataclass
@@ -135,10 +146,12 @@ class PredictorConfig:
     # timeline only follows who is SPEAKING in that mode); "on"/"off"
     # force it. The alignment default stays reference-parity.
     turn_aware_aggregation: str = "auto"
-    # The detector: "lip_sync" (LipSyncModel, a ModelConfig) or
+    # The detector: "lip_sync" (LipSyncModel, a ModelConfig),
     # "avhubert_large" (AV-HuBERT LARGE with a detection head,
     # models/avhubert.py, an AVHubertConfig; grey crops and a 26-bin
-    # log-mel). Not in the JAX package.
+    # log-mel) or "auto_avsr" (Auto-AVSR's audio-visual conformer with a
+    # detection head, models/auto_avsr.py, an AutoAVSRConfig; grey crops
+    # and 16 kHz PCM). Not in the JAX package.
     architecture: str = "lip_sync"
 
     def __post_init__(self):
@@ -183,14 +196,15 @@ class Predictor:
         self,
         model_path: Optional[Path] = None,
         config: PredictorConfig = PredictorConfig(),
-        model_config: Union[ModelConfig, AVHubertConfig, None] = None,
+        model_config: Union[ModelConfig, AVHubertConfig, AutoAVSRConfig,
+                            None] = None,
         engine: Optional[ScoringEngine] = None,
         detector_backend=None,
         device: DeviceLike = None,
     ):
         self.cfg = config
         # The architecture picks the configuration's type; None is its
-        # default (ModelConfig() or AVHubertConfig()).
+        # default (ModelConfig(), AVHubertConfig() or AutoAVSRConfig()).
         kind = MODEL_CONFIGS[config.architecture]
         if model_config is None:
             model_config = kind()
@@ -355,17 +369,19 @@ class Predictor:
 
     def _audio_or_silence(
         self, audio_path: Path, target_frames: Optional[int]
-    ) -> np.ndarray:
-        """Load the mel spectrogram; if the container has no usable audio
-        stream, degrade to silence of the video's duration rather than
-        erroring the request (the reference 500s here — an intentional
-        robustness improvement, consistent with its VAD all-speech
-        fallback, audio.py:232-237)."""
-        n_mels = self.model_config.mel_bins
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """``(log-mel (F, T), the model's audio in the same T columns)``:
+        the mel itself, or for a model that takes PCM the PCM framed by
+        ``frame_pcm`` (both cut to ``target_frames`` columns or padded with
+        their last one). If the container has no usable audio stream,
+        degrade to silence of the video's duration rather than erroring
+        the request (the reference 500s here — an intentional robustness
+        improvement, consistent with its VAD all-speech fallback,
+        audio.py:232-237)."""
         try:
-            return preprocess_audio(audio_path, n_mels=n_mels,
-                                    target_frames=target_frames,
-                                    device=self.device)
+            pcm = ingest.read_audio(audio_path, sr=SAMPLE_RATE)
+            if pcm.size == 0:
+                raise ValueError(f"Empty audio signal for {audio_path}")
         except ValueError:
             info = ingest.probe(audio_path)
             dur = max(1.0, info.duration_sec)
@@ -373,10 +389,13 @@ class Predictor:
                 "No audio stream in %s — scoring against %.1fs of silence",
                 audio_path, dur,
             )
-            silence = np.zeros(int(dur * 16000), np.float32)
-            return preprocess_audio_pcm(silence, n_mels=n_mels,
-                                        target_frames=target_frames,
-                                        device=self.device)
+            pcm = np.zeros(int(dur * SAMPLE_RATE), np.float32)
+        mel = preprocess_audio_pcm(pcm, n_mels=self.model_config.mel_bins,
+                                   target_frames=target_frames,
+                                   device=self.device)
+        if not isinstance(self.model_config, AutoAVSRConfig):
+            return mel, mel
+        return mel, frame_pcm(pcm, target_frames)  # Auto-AVSR takes PCM
 
     # ── Public API ────────────────────────────────────────────────────────
 
@@ -391,7 +410,7 @@ class Predictor:
             crop_size=self.model_config.crop_size,
             device=self.device,
         )
-        audio = self._audio_or_silence(
+        _, audio = self._audio_or_silence(
             video_path, self.model_config.audio_frames
         )
         confidence = self._score_windows([visual], [audio])[0]
@@ -448,7 +467,7 @@ class Predictor:
             max_total_frames=cfg.max_total_frames,
             device=self.device,
         )
-        audio_np = self._audio_or_silence(
+        audio_np, model_audio = self._audio_or_silence(
             audio_path, self.model_config.audio_frames
         )
         t_pre_end = perf_counter()
@@ -459,13 +478,14 @@ class Predictor:
 
         if not tracks:
             return self._predict_single_face(
-                video_path, audio_np, t_start, t_pre_end - t_pre_start
+                video_path, audio_np, t_start, t_pre_end - t_pre_start,
+                model_audio=model_audio,
             )
 
         # Phase 1: ALL tracks scored in one batched forward.
         t_inf_start = perf_counter()
         clips = [tr["clip"] for tr in tracks]
-        confs = self._score_windows(clips, [audio_np] * len(clips))
+        confs = self._score_windows(clips, [model_audio] * len(clips))
 
         track_results: List[Dict[str, Any]] = []
         track_clip_map: Dict[int, np.ndarray] = {}
@@ -516,7 +536,7 @@ class Predictor:
             for tr in quick_sorted[: cfg.refine_top_k]:
                 visual_np = track_clip_map[int(tr["track_id"])]
                 smoothed, samples, spans = self._temporal_smoothed_confidence(
-                    visual_np, audio_np
+                    visual_np, model_audio
                 )
                 tr["confidence"] = float(smoothed)
                 tr["manipulation_probability"] = float(1.0 - smoothed)
@@ -707,8 +727,11 @@ class Predictor:
         audio_np: np.ndarray,
         t_start: float,
         preproc_sec: float,
+        model_audio: Optional[np.ndarray] = None,
     ) -> Dict[str, Any]:
-        """No-tracks fallback (predictor.py:1330-1400)."""
+        """No-tracks fallback (predictor.py:1330-1400). ``model_audio``:
+        what the model takes for ``audio_np`` (the log-mel itself when
+        None)."""
         visual_np = preprocess_video(
             video_path, backend=self.backend,
             max_frames=self.model_config.video_frames,
@@ -716,7 +739,9 @@ class Predictor:
             max_total_frames=self.cfg.max_total_frames,
             device=self.device,
         )
-        confidence = self._score_windows([visual_np], [audio_np])[0]
+        if model_audio is None:
+            model_audio = audio_np
+        confidence = self._score_windows([visual_np], [model_audio])[0]
         confidence, mouth_check = self._apply_mouth_motion_check(
             visual_np, audio_np, confidence
         )
@@ -739,7 +764,9 @@ class Predictor:
     ) -> Dict[str, Any]:
         cfg = self.cfg
         t_pre_start = perf_counter()
-        audio_np_full = self._audio_or_silence(audio_path, None)  # (F, T_full)
+        # (F, T_full), and the model's audio in the same columns
+        audio_np_full, model_audio_full = self._audio_or_silence(
+            audio_path, None)
         total_a_frames = audio_np_full.shape[1]
         try:
             vad_mask, _ = detect_voice_activity(audio_path)
@@ -758,7 +785,7 @@ class Predictor:
             )
             fps, total_v_frames = cfg.target_fps, len(frames)
             chunked_tracks, pipelined_probs = score_long_video_pipelined(
-                frames, audio_np_full, self.engine,
+                frames, model_audio_full, self.engine,
                 backend=self.backend,
                 chunk_size=cfg.chunk_size,
                 stride=cfg.chunk_stride,
@@ -811,7 +838,7 @@ class Predictor:
             for tr in chunked_tracks:
                 audio_windows = np.stack([
                     policy.align_audio_chunk(
-                        audio_np_full, abs_start, total_v_frames,
+                        model_audio_full, abs_start, total_v_frames,
                         chunk_a_size=self.model_config.audio_frames,
                         chunk_v_size=cfg.chunk_size,
                     )
@@ -829,7 +856,7 @@ class Predictor:
                     yield (
                         tr.chunk(ci),
                         policy.align_audio_chunk(
-                            audio_np_full, tr.abs_chunk_starts[ci],
+                            model_audio_full, tr.abs_chunk_starts[ci],
                             total_v_frames,
                             chunk_a_size=self.model_config.audio_frames,
                         chunk_v_size=cfg.chunk_size,

@@ -138,18 +138,39 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
-class BasicBlock(nn.Module):
-    """ResNet BasicBlock with PReLU: conv3x3, BN, PReLU, conv3x3, BN, the
-    shortcut added (1x1 conv + BN where the shape changes), PReLU."""
+class Swish(nn.Module):
+    """``x * sigmoid(x)``, computed as one operation (``F.silu``: in bf16 the
+    exact product rounded once)."""
 
-    def __init__(self, cin: int, cout: int, stride: int):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(x)
+
+
+ACTIVATIONS = ("prelu", "swish")
+
+
+def activation(kind: str, channels: int) -> nn.Module:
+    """The ResNet's activation: PReLU (one slope a channel, AV-HuBERT) or
+    Swish (no parameter, Auto-AVSR)."""
+    if kind == "prelu":
+        return nn.PReLU(channels)
+    if kind == "swish":
+        return Swish()
+    raise ValueError(f"activation must be one of {ACTIVATIONS}, got {kind!r}")
+
+
+class BasicBlock(nn.Module):
+    """ResNet BasicBlock: conv3x3, BN, act, conv3x3, BN, the shortcut added
+    (1x1 conv + BN where the shape changes), act; act is PReLU or Swish."""
+
+    def __init__(self, cin: int, cout: int, stride: int, act: str = "prelu"):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(cout)
-        self.relu1 = nn.PReLU(cout)
+        self.relu1 = activation(act, cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
         self.bn2 = nn.BatchNorm2d(cout)
-        self.relu2 = nn.PReLU(cout)
+        self.relu2 = activation(act, cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
@@ -166,12 +187,13 @@ class BasicBlock(nn.Module):
 class ResNetTrunk(nn.Module):
     """ResNet-18's four stages over single frames, average-pooled."""
 
-    def __init__(self):
+    def __init__(self, act: str = "prelu"):
         super().__init__()
         cin = RESNET_WIDTHS[0]
         for i, (cout, stride) in enumerate(zip(RESNET_WIDTHS, (1, 2, 2, 2))):
             self.add_module(f"layer{i + 1}", nn.Sequential(
-                BasicBlock(cin, cout, stride), BasicBlock(cout, cout, 1)))
+                BasicBlock(cin, cout, stride, act),
+                BasicBlock(cout, cout, 1, act)))
             cin = cout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -188,17 +210,22 @@ def stem_takes_kernel(x: torch.Tensor, module: nn.Module) -> bool:
 
 
 class ResEncoder(nn.Module):
-    """The 3D stem over the clip, then the trunk on each frame."""
+    """The 3D stem over the clip, then the trunk on each frame: AV-HuBERT's
+    ``ResEncoder`` with PReLU, Auto-AVSR's ``Conv3dResNet`` with Swish (the
+    same modules under the same names). ``name`` prefixes K5's span and
+    counters (``<name>.stem``, ``<name>.stem_calls``,
+    ``<name>.stem_outputs``)."""
 
-    def __init__(self):
+    def __init__(self, act: str = "prelu", name: str = "avhubert"):
         super().__init__()
         c = RESNET_WIDTHS[0]
+        self.name = name
         self.frontend3D = nn.Sequential(
             nn.Conv3d(1, c, (STEM_T, 7, 7), (1, 2, 2), (STEM_T // 2, 3, 3),
                       bias=False),
-            nn.BatchNorm3d(c), nn.PReLU(c),
+            nn.BatchNorm3d(c), activation(act, c),
             nn.MaxPool3d((1, 3, 3), (1, 2, 2), (0, 1, 1)))
-        self.trunk = ResNetTrunk()
+        self.trunk = ResNetTrunk(act)
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """``frontend3D``: ``(B, 1, T, H, W)`` -> ``(B, C, T, h, w)``, by
@@ -207,10 +234,10 @@ class ResEncoder(nn.Module):
         if not stem_takes_kernel(x, self):
             return self.frontend3D(x)
         b, _, t, h, w = x.shape
-        profiling.count("avhubert.stem_calls", 1)
-        profiling.count("avhubert.stem_outputs",
+        profiling.count(f"{self.name}.stem_calls", 1)
+        profiling.count(f"{self.name}.stem_outputs",
                         b * t * av_stem.out_size(h) * av_stem.out_size(w))
-        with profiling.span("avhubert.stem", device=x.device):
+        with profiling.span(f"{self.name}.stem", device=x.device):
             return av_stem.av_stem(x, *av_stem.operands(self.frontend3D))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -344,6 +371,16 @@ class AVHubert(nn.Module):
         trailing axis of 3, in the crops' channel order; no grey crop is 3
         pixels wide) are turned grey with cv2's luma weights."""
         return grey_pixels(crops) if crops.shape[-1] == 3 else crops
+
+    @staticmethod
+    def host_audio(audio):
+        """The host's mel windows as this model takes them: ``(N, F, T_a,
+        1)``."""
+        return audio[..., None] if audio.ndim == 3 else audio
+
+    def audio_shape(self):
+        """One window's mel as the host hands it over: ``(F, T_a)``."""
+        return (self.config.mel_bins, self.config.audio_frames)
 
     def __init__(self, config: AVHubertConfig = AVHubertConfig(),
                  dtype: torch.dtype = torch.float32):

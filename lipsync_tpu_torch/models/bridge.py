@@ -195,8 +195,13 @@ def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     fan-in-scaled normal conv/linear weights, small biases, BatchNorm scales
     in [0.5, 1.5] with running means ~N(0, 0.1) and variances in [0.5, 1.5],
     LayerNorm scales in [0.8, 1.2], the Laplacian's init plus noise so
-    its 3->3 channel mix is non-trivial, PReLU slopes in [0.1, 0.4] and a
-    weight norm's ``g`` (``weight_g``) in [1, 2]."""
+    its 3->3 channel mix is non-trivial, PReLU slopes in [0.1, 0.4], a
+    weight norm's ``g`` (``weight_g``) in [1, 2], and relative-position
+    attention's per-head biases (``pos_bias_u``, ``pos_bias_v``, ``(heads,
+    d_k)``) Xavier-uniform as ESPnet draws them. Depthwise and pointwise
+    convolutions take the fan-in rule with the rest, and every BatchNorm
+    (``BatchNorm1d`` of a convolution module or a fusion head too) the
+    BatchNorm ranges."""
     rng = np.random.default_rng(seed)
     norm_prefixes = {
         name: isinstance(m, nn.LayerNorm)
@@ -225,6 +230,9 @@ def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             v = rng.uniform(0.1, 0.4, shape)
         elif leaf == "weight_g":
             v = rng.uniform(1.0, 2.0, shape)
+        elif leaf in ("pos_bias_u", "pos_bias_v"):
+            bound = np.sqrt(6.0 / sum(shape))
+            v = rng.uniform(-bound, bound, shape)
         elif leaf == "cls_token":
             v = rng.normal(0.0, 0.02, shape)
         elif leaf.endswith("bias"):

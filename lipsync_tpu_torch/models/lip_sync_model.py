@@ -123,6 +123,16 @@ class LipSyncModel(nn.Module):
         """The host's crops as this model takes them: RGB, unchanged."""
         return crops
 
+    @staticmethod
+    def host_audio(audio):
+        """The host's mel windows as this model takes them: ``(N, F, T_a,
+        1)``."""
+        return audio[..., None] if audio.ndim == 3 else audio
+
+    def audio_shape(self):
+        """One window's mel as the host hands it over: ``(F, T_a)``."""
+        return (self.config.mel_bins, self.config.audio_frames)
+
     def forward(
         self,
         visual: torch.Tensor,

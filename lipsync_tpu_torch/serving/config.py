@@ -77,7 +77,7 @@ class Settings(Model):
     coalesce_max_wait_ms: float = 2.0
     # Speaking-activity semantics (PredictorConfig.speaking_score_mode).
     speaking_score_mode: str = "alignment"
-    # The detector, "lip_sync" or "avhubert_large"
+    # The detector, "lip_sync", "avhubert_large" or "auto_avsr"
     # (PredictorConfig.architecture).
     architecture: str = "lip_sync"
     sqlite_db_path: str = "./jobs.db"

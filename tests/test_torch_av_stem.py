@@ -1,9 +1,10 @@
-"""K5, AV-HuBERT's 3D stem (``ops/kernels/av_stem.py``, ``csrc/av_stem.cu``),
-on the CPU: the twin against the module chain it stands for, the weights'
-shared-memory image entry by entry, a model of the kernel's tiles, halo,
-GEMM and pool on exact values, when ``ResEncoder`` takes the kernel, and
-what the wrapper refuses. The kernel itself runs on the card:
-``tests/test_torch_av_stem_card.py``.
+"""K5, the 3D stem of AV-HuBERT (PReLU) and of Auto-AVSR (Swish)
+(``ops/kernels/av_stem.py``, ``csrc/av_stem.cu``), on the CPU: the twin
+against the module chain it stands for, with either activation, the
+weights' shared-memory image entry by entry, a model of the kernel's
+tiles, halo, GEMM, epilogue and pool on exact values, when ``ResEncoder``
+takes the kernel, and what the wrapper refuses. The kernel itself runs on
+the card: ``tests/test_torch_av_stem_card.py``.
 """
 
 import contextlib
@@ -34,12 +35,13 @@ def cpu_conv3d(t, dtype):
     return contextlib.nullcontext()
 
 
-def encoder(seed, dtype=torch.bfloat16):
-    """A ``ResEncoder`` in eval mode as ``AVHubert`` stores it in
-    ``dtype``: convolutions and PReLU in ``dtype``, BatchNorm fp32, with
-    running statistics, weight and bias drawn from ``seed``."""
+def encoder(seed, dtype=torch.bfloat16, act="prelu"):
+    """A ``ResEncoder`` in eval mode as ``AVHubert`` (``act="prelu"``) or
+    ``AutoAVSR`` (``"swish"``) stores it in ``dtype``: convolutions and
+    PReLU in ``dtype``, BatchNorm fp32, with running statistics, weight and
+    bias drawn from ``seed``."""
     g = torch.Generator().manual_seed(seed)
-    enc = ResEncoder()
+    enc = ResEncoder(act)
     bn = enc.frontend3D[1]
     with torch.no_grad():
         enc.frontend3D[0].weight.copy_(
@@ -48,20 +50,42 @@ def encoder(seed, dtype=torch.bfloat16):
         bn.running_var.copy_(torch.rand(64, generator=g) * 2 + 0.1)
         bn.weight.copy_(torch.randn(64, generator=g) * 0.5 + 1)
         bn.bias.copy_(torch.randn(64, generator=g) * 0.2)
-        enc.frontend3D[2].weight.copy_(torch.rand(64, generator=g) * 0.5)
+        slopes = torch.rand(64, generator=g) * 0.5
+        if act == "prelu":
+            enc.frontend3D[2].weight.copy_(slopes)
     for m in enc.modules():
         if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.PReLU)):
             m.to(dtype)
     return enc.eval()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def by_shape(shapes):
+    return pytest.mark.parametrize("shape", shapes,
+                                   ids=lambda s: "x".join(map(str, s)))
+
+
+DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                                 ids=["bf16", "fp32"])
+
+
+@DTYPES
+@by_shape(SHAPES)
 def test_twin_is_the_module_chain(shape, dtype):
     """``av_stem_plain`` is ``frontend3D`` bit for bit at odd shapes, and
     the wrapper runs it for a CPU tensor without counting a launch."""
-    enc = encoder(1, dtype)
+    twin_is_the_module_chain(shape, dtype, "prelu")
+
+
+@DTYPES
+@by_shape(SHAPES)
+def test_swish_twin_is_the_module_chain(shape, dtype):
+    """So with Swish (no slope: ``prelu_weight=None``)."""
+    twin_is_the_module_chain(shape, dtype, "swish")
+
+
+def twin_is_the_module_chain(shape, dtype, act):
+    enc = encoder(1, dtype, act)
+    assert (k5.operands(enc.frontend3D)[-1] is None) == (act == "swish")
     b, t, h, w = shape
     x = torch.randn(b, 1, t, h, w,
                     generator=torch.Generator().manual_seed(2)).to(dtype)
@@ -80,7 +104,7 @@ def test_twin_is_the_module_chain(shape, dtype):
 def reversed_sum_chain(x, conv_w, gamma, beta, mean, var, eps, slope):
     """The module chain with the conv's 245 products summed in fp32 one by
     one in the reverse tap order: the chain with another order of the
-    sum."""
+    sum (PReLU, or Swish for ``slope=None``)."""
     b, _, t, h, w = x.shape
     patches = F.pad(x.float(), (3, 3, 3, 3, 2, 2)).unfold(2, 5, 1).unfold(
         3, 7, 2).unfold(4, 7, 2).reshape(b, t, k5.out_size(h),
@@ -91,19 +115,33 @@ def reversed_sum_chain(x, conv_w, gamma, beta, mean, var, eps, slope):
         y = y + patches[..., k] * taps[:, k]
     y = y.permute(0, 4, 1, 2, 3).to(x.dtype)
     y = F.batch_norm(y, mean, var, gamma, beta, False, 0.0, eps)
-    return F.max_pool3d(F.prelu(y, slope), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+    y = F.silu(y) if slope is None else F.prelu(y, slope)
+    return F.max_pool3d(y, (1, 3, 3), (1, 2, 2), (0, 1, 1))
 
 
-@pytest.mark.parametrize("shape", [(2, 5, 88, 88), (3, 7, 60, 71)],
-                         ids=lambda s: "x".join(map(str, s)))
+BOUND_SHAPES = [(2, 5, 88, 88), (3, 7, 60, 71)]
+
+
+@by_shape(BOUND_SHAPES)
 def test_sum_order_bound_covers_another_order(shape):
     """``sum_order_bound``, the card tests' tolerance for K5 against the
     module chain, holds between the chain and the same chain summing its
     conv in another order, at random inputs where some pooled values differ; and
     it is near one bf16 step of each value carried through BatchNorm's
-    gain and PReLU's slope: its median within 4 steps of the pooled
-    output's spacing at that gain and slope."""
-    enc = encoder(7)
+    gain and the activation's slope: its median within 4 steps of the
+    pooled output's spacing at that gain and slope. Computed a window at a
+    time (``BOUND_CHUNK``), it is the same bound."""
+    sum_order_bound_covers_another_order(shape, "prelu")
+
+
+@by_shape(BOUND_SHAPES)
+def test_swish_sum_order_bound_covers_another_order(shape):
+    """So with Swish, whose slope the bound takes as 1.1."""
+    sum_order_bound_covers_another_order(shape, "swish")
+
+
+def sum_order_bound_covers_another_order(shape, act):
+    enc = encoder(7, act=act)
     b, t, h, w = shape
     x = torch.randn(b, 1, t, h, w,
                     generator=torch.Generator().manual_seed(8)).bfloat16()
@@ -112,9 +150,11 @@ def test_sum_order_bound_covers_another_order(shape):
         want = enc.frontend3D(x)
         other = reversed_sum_chain(x, *ops)
         bound = k5.sum_order_bound(x, *ops)
-        conv, bn, prelu, _ = enc.frontend3D
+        conv, bn, act_module, _ = enc.frontend3D
+        slope = (k5.SWISH_SLOPE if act == "swish"
+                 else act_module.weight.float().abs().clamp(min=1))
         gain = (bn.weight.abs() / torch.sqrt(bn.running_var + bn.eps)
-                * prelu.weight.float().abs().clamp(min=1)).view(1, 64, 1, 1, 1)
+                * slope).view(1, 64, 1, 1, 1)
         y = F.max_pool3d(conv(x).float().abs(), (1, 3, 3), (1, 2, 2),
                          (0, 1, 1))
         steps = bound / (gain * k5._step(y) + k5._step(want.float().abs()))
@@ -123,6 +163,9 @@ def test_sum_order_bound_covers_another_order(shape):
     assert bool((diff > 0).any())
     assert bool((diff <= bound).all()), float((diff / bound).max())
     assert float(steps.median()) <= 4
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(k5, "BOUND_CHUNK", 1)
+        assert torch.equal(k5.sum_order_bound(x, *ops), bound)
 
 
 def test_pack_weights_entry_by_entry():
@@ -164,15 +207,17 @@ def kernel_model(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps,
     columns from 4 px0 - 6, zero outside the clip), GEMM row m = 23 i + j
     gathering K column 8 r + dx' from halo (r // 7, 2 i + r % 7, 2 j + dx')
     (row 35 reads row 34), B from the packed image, the sum rounded to bf16,
-    BatchNorm as ``fma(gamma * (y - mean), invstd, beta)``, PReLU, and the
-    3 x 3 max over the conv positions inside the frame. Sums in float64."""
+    BatchNorm as ``fma(gamma * (y - mean), invstd, beta)``, PReLU (or for
+    ``prelu_weight=None`` Swish as ``z / (1 + exp(-z))`` in fp32, rounded),
+    and the 3 x 3 max over the conv positions inside the frame. Sums in
+    float64."""
     b, _, t, h, w = x.shape
     ho, wo = k5.out_size(h), k5.out_size(w)
     hp, wp = k5.out_size(ho), k5.out_size(wo)
     py_n, px_n = k5.POOL_TILE
     bmat = unpack(k5.pack_weights(conv_weight)).double()[:288]
     invstd = torch.rsqrt(bn_var + eps)
-    slope = prelu_weight.float()
+    slope = None if prelu_weight is None else prelu_weight.float()
     m = 64  # zero margin past every halo
     xp = torch.zeros(b, t + 4, h + 2 * m, w + 2 * m, dtype=torch.float64)
     xp[:, 2:t + 2, m:m + h, m:m + w] = x[:, 0].double()
@@ -194,7 +239,11 @@ def kernel_model(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps,
                     y = (a @ bmat).float().bfloat16().float()
                     z = torch.addcmul(bn_bias, bn_weight * (y - bn_mean),
                                       invstd).bfloat16().float()
-                    z = torch.where(z > 0, z, (slope * z).bfloat16().float())
+                    if slope is None:
+                        z = (z / (1 + torch.exp(-z))).bfloat16().float()
+                    else:
+                        z = torch.where(z > 0, z,
+                                        (slope * z).bfloat16().float())
                     z = z.reshape(2 * py_n + 1, 2 * px_n + 1, 64)
                     hos = 2 * py0 - 1 + torch.arange(2 * py_n + 1)
                     wos = 2 * px0 - 1 + torch.arange(2 * px_n + 1)
@@ -212,9 +261,10 @@ def kernel_model(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps,
     return out
 
 
-@pytest.mark.parametrize("shape", [(1, 3, 9, 9), (2, 2, 17, 23),
-                                   (1, 1, 40, 50), (1, 6, 1, 3)],
-                         ids=lambda s: "x".join(map(str, s)))
+MODEL_SHAPES = [(1, 3, 9, 9), (2, 2, 17, 23), (1, 1, 40, 50), (1, 6, 1, 3)]
+
+
+@by_shape(MODEL_SHAPES)
 def test_kernel_model_is_the_chain_on_exact_values(shape):
     """On pixels in {-1, 0, 1} / 4 and weights in {-1, 0, 1} / 8 every sum
     is exact in any order (multiples of 1/32 under 8), and BatchNorm with
@@ -222,6 +272,17 @@ def test_kernel_model_is_the_chain_on_exact_values(shape):
     its formulas: the model of the kernel's tiles, halo, K layout, packed B
     and pool then equals the twin bit for bit, through every tile border
     and frame edge."""
+    kernel_model_is_the_chain_on_exact_values(shape, "prelu")
+
+
+@by_shape(MODEL_SHAPES)
+def test_swish_kernel_model_is_the_chain_on_exact_values(shape):
+    """So with Swish, whose fp32 formula the model shares with the twin's
+    silu."""
+    kernel_model_is_the_chain_on_exact_values(shape, "swish")
+
+
+def kernel_model_is_the_chain_on_exact_values(shape, act):
     g = torch.Generator().manual_seed(4)
     b, t, h, w = shape
     x = (torch.randint(-1, 2, (b, 1, t, h, w), generator=g) / 4).bfloat16()
@@ -231,6 +292,8 @@ def test_kernel_model_is_the_chain_on_exact_values(shape):
           (torch.randint(-4, 5, (64,), generator=g) / 8).float(),
           torch.ones(64))
     slope = (torch.randint(0, 4, (64,), generator=g) / 4).bfloat16()
+    if act == "swish":
+        slope = None
     with cpu_conv3d(t, torch.bfloat16):
         want = k5.av_stem_plain(x, cw, *bn, 0.0, slope)
     got = kernel_model(x, cw, *bn, 0.0, slope)
@@ -372,3 +435,78 @@ def test_benchmark_readers(monkeypatch, program):
                             40 / peaks.H100_SXM["bytes_per_s"])
     assert roofline == pytest.approx(100 * 2 * least / 5.2e-3)
     assert 0 < roofline < 100
+
+
+def test_swish_stem_names_its_own_spans(monkeypatch):
+    """Auto-AVSR's ``ResEncoder("swish", "auto_avsr")`` hands K5 no slope
+    (the Swish instantiation) and records ``auto_avsr.stem`` and the
+    counters ``auto_avsr.stem_calls`` and ``auto_avsr.stem_outputs``, not
+    AV-HuBERT's."""
+    enc = encoder(5, act="swish")
+    enc.name = "auto_avsr"
+    x = torch.randn(2, 1, 3, 17, 23).bfloat16()
+    seen = []
+    monkeypatch.setattr(k5, "av_stem",
+                        lambda *a: seen.append(a[-1]) or k5.av_stem_plain(*a))
+    monkeypatch.setattr(avhubert, "stem_takes_kernel", lambda x, m: True)
+    with torch.no_grad():
+        chain = enc.frontend3D(x)
+    profiling.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.no_grad(), profiling.span("auto_avsr.video"):
+            assert torch.equal(enc.stem(x), chain)
+    assert seen == [None]
+    by_name = {r.name: r for r in profiling.records()}
+    assert by_name["auto_avsr.stem"].parent == by_name["auto_avsr.video"].id
+    assert profiling.counters() == {"auto_avsr.stem_calls": 1,
+                                    "auto_avsr.stem_outputs": 2 * 3 * 9 * 12}
+    profiling.clear()
+
+
+def test_wrapper_takes_no_slope_for_swish():
+    """``prelu_weight=None`` is Swish: the shape and operand checks pass
+    without a slope, and the CPU twin applies ``silu``."""
+    enc = encoder(6, act="swish")
+    ops = k5.operands(enc.frontend3D)
+    x = torch.randn(1, 1, 2, 9, 9).bfloat16()
+    k5.check_shapes(x, ops[0], None)
+    k5.check_operands(x, ops[0], ops[1:5], None)
+    with torch.no_grad():
+        y = F.conv3d(x, ops[0], None, (1, 2, 2), (2, 3, 3))
+        y = F.batch_norm(y, ops[3], ops[4], ops[1], ops[2], False, 0.0,
+                         ops[5])
+        want = F.max_pool3d(F.silu(y), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        assert torch.equal(k5.av_stem(x, *ops), want)
+
+
+def test_swish_roofline_reads_its_own_counters(monkeypatch):
+    """``k5_swish_stem_roofline`` reads ``auto_avsr.stem_*`` and
+    ``k5_av_stem_roofline`` ``avhubert.stem_*``: in a window of the Swish
+    stem alone the PReLU reader finds nothing, and the other way round."""
+    from benchmark.core import auto_avsr_flops
+    from benchmark.core.trace import Trace
+    from benchmark.run import View
+
+    ms = 1_000_000
+    positions = 256 * 96 * 44 * 44
+    tr = Trace(False)
+    tr.window = (1000 * ms, 2000 * ms)
+    tr.kernels = [(1100 * ms, 1106 * ms,
+                   "void (anonymous namespace)::av_stem_kernel<true, true>"
+                   "(...)")]
+    view = View(types.SimpleNamespace(config={}), {}, tr)
+    for prefix, metric, other in (
+            ("auto_avsr", "k5_swish_stem_roofline", "k5_av_stem_roofline"),
+            ("avhubert", "k5_av_stem_roofline", "k5_swish_stem_roofline")):
+        counters = {f"{prefix}.stem_calls": 1,
+                    f"{prefix}.stem_outputs": positions}
+        monkeypatch.setattr(profiling, "counters", lambda: dict(counters))
+        got = _reader(metric).read(view)
+        assert 0 < got < 100
+        assert _reader(other).read(view) is None
+    least = auto_avsr_flops.stem_least_seconds(positions)
+    monkeypatch.setattr(profiling, "counters", lambda: {
+        "auto_avsr.stem_calls": 1, "auto_avsr.stem_outputs": positions})
+    assert _reader("k5_swish_stem_roofline").read(view) == pytest.approx(
+        100 * least / 6e-3)

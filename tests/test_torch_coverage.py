@@ -103,8 +103,9 @@ TORCH_STATE = ("JAX's explicit variables, state, opt_state, params and rng "
                "become torch state: the module's parameters and state dict, "
                "the optimizer object and torch.Generator seeds")
 TORCH_DTYPE = "jnp.float32 -> torch.float32"
-ARCHITECTURE = ("the port's second detector, AV-HuBERT LARGE "
-                "(models/avhubert.py), which the JAX package lacks, is "
+ARCHITECTURE = ("the port's second and third detectors, AV-HuBERT LARGE "
+                "(models/avhubert.py) and Auto-AVSR's AV conformer "
+                "(models/auto_avsr.py), which the JAX package lacks, are "
                 "chosen by 'architecture'")
 
 # (JAX module, JAX name) -> how the port's parameters differ by idiom.

@@ -57,7 +57,7 @@ def test_every_kernel_builds_without_spills(card, tmp_path, monkeypatch):
     test's own, so that ptxas reports on every kernel); ptxas spills no
     register of any kernel and serialises no ``wgmma`` (K3); K2 holds two
     blocks per SM or more in both dtypes, and so does K5 in both staging
-    variants."""
+    variants of both activations (PReLU, Swish)."""
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     logs = build.build()
     assert sorted(logs) == sorted(build.KERNELS)
@@ -68,7 +68,8 @@ def test_every_kernel_builds_without_spills(card, tmp_path, monkeypatch):
                 if "wgmma" in ln and "serializ" in ln]
     assert min(k2.blocks_per_sm(torch.float32),
                k2.blocks_per_sm(torch.bfloat16)) >= 2
-    assert min(k5.blocks_per_sm(True), k5.blocks_per_sm(False)) >= 2
+    assert min(k5.blocks_per_sm(aligned, swish) for aligned in (True, False)
+               for swish in (False, True)) >= 2
 
 
 # ── K1 ───────────────────────────────────────────────────────────────────
